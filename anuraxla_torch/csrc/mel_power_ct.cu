@@ -34,13 +34,16 @@
 // on mel power against the f32 HIGHEST oracle). One TF32 tensor-core pass
 // would not.
 //
-// Bound on an H100 SXM. At DEFAULT_MEL (n_fft 2048, hop 384, 64 mels) a
-// frame costs ~1.27 MFLOP of FP32 FMA work (7 complex + 2 real 128x128
-// outer products, 9 merged-filterbank products, the inner stage); x 626
-// frames x B = 1024 that is ~0.81 TFLOP, ~12 ms at the card's 67 TFLOP/s
-// FP32 (non-tensor) rate. The input is 1.2 GB (B = 1024 rows of 294912 f32),
-// ~0.36 ms at 3.35 TB/s. So the kernel is bound by operations, and its
-// speed is the FFMA issue rate of the outer GEMMs.
+// Bound on an H100 SXM. The function needs, per frame at DEFAULT_MEL
+// (n_fft 2048, hop 384, 64 mels), a 2048-point real FFT (~56 kFLOP), the
+// window, the power and the filterbank's 1231 nonzero weights: ~64 kFLOP.
+// x 626 frames x B = 1024 that is ~41 GFLOP, ~0.62 ms at the card's
+// 67 TFLOP/s FP32 (non-tensor) rate; the 1.37 GB of rows, tables and output
+// take ~0.41 ms at 3.35 TB/s. So the bound is ~0.62 ms, by operations.
+// This kernel's GEMM form does ~20x that work (~1.27 MFLOP per frame: 7
+// complex + 2 real 128x128 outer products, 9 merged-filterbank products,
+// the inner stage; ~0.81 TFLOP, ~12 ms at the FP32 rate), so its speed is
+// the FFMA issue rate of the outer GEMMs and it sits far from the bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -4,11 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``anuraxla_torch/_build/lib<name>-<hash>.so``,
 keyed by the source's content) and loaded with ``ctypes`` at first use. Only
 the repository's sources are read. No PyTorch headers are included, so a
-build takes seconds. A missing ``nvcc`` or a failed build raises: there is no
-fallback.
-
-``build(names)`` starts one ``nvcc`` per source, all at once, and waits for
-them together.
+build takes seconds. ``ptxas``'s report (registers, spills) is kept beside the
+library as ``lib<name>-<hash>.log``. A missing ``nvcc`` or a failed build
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -18,9 +16,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -31,8 +28,6 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-#: ptxas report (registers, shared memory, spills) of each build in this process
-build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -45,46 +40,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, float]:
-    """Compile every named kernel whose library is missing, in parallel.
-    Returns {name: seconds} for the builds that ran."""
-    todo = [n for n in names if not _lib_path(n).exists()]
-    if not todo:
-        return {}
-    nvcc = _nvcc()
+def _build(name: str) -> None:
+    out = lib_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    t0 = time.perf_counter()
-    for n in todo:
-        tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), tmp)
-    times, failed = {}, []
-    for n, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        times[n] = time.perf_counter() - t0
-        build_logs[n] = log
-        if proc.returncode != 0:
-            failed.append(f"{n}:\n{log}")
-            continue
-        os.replace(tmp, _lib_path(n))  # atomic: a reader never sees half a file
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return times
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, out)  # atomic: a reader never sees half a file
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu``, building it if it is missing."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        if not lib_path(name).exists():
+            _build(name)
+        lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib

@@ -56,9 +56,9 @@ def phase_padded_layout(cfg: MelConfig, num_frames: int) -> tuple[int, int]:
 
 def kernel_supported(cfg: MelConfig, algorithm: str = "auto") -> bool:
     """The reference's support gate (``pallas_supported``): ct needs n_fft a
-    >= 2 multiple of 128 and hop % 32 == 0; dense needs hop % 16 == 0. The
-    port's kernel takes the ct family with hop % 128 == 0 (see
-    ``frontend.resolved_backend``)."""
+    >= 2 multiple of 128 and hop % 32 == 0; dense needs hop % 16 == 0. Kept
+    as the copy that the tests hold to ``pallas_supported``; the port decides
+    with :func:`kernel_takes`."""
     hop, n_fft = cfg.hop_length, cfg.n_fft
     ct_ok = n_fft % 128 == 0 and n_fft >= 256 and hop % 32 == 0
     dense_ok = (8 * hop) % 128 == 0

@@ -38,6 +38,8 @@ class EncoderSession:
 
     mel: MelConfig
     batch_size: int = 64
+    # only the parity frontend is ported: False (the fast tier) is refused
+    # at load() until that tier lands
     parity: bool = True
     backend: str = "cuda"  # "cuda" | "matmul"
     encoder_cfg: VAEConfig = dataclasses.field(default_factory=VAEConfig)
@@ -59,6 +61,8 @@ class EncoderSession:
 
     def load(self, params: Optional[dict] = None) -> "EncoderSession":
         self._dev = resolve_device(self.device)
+        if not self.parity:
+            raise NotImplementedError("the fast frontend (parity=False) is not ported yet")
         if self.encoder_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"encoder_dtype must be float32 or bfloat16, got {self.encoder_dtype!r}")
         cfg = dataclasses.replace(self.encoder_cfg, dtype=self.encoder_dtype)

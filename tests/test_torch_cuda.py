@@ -1,5 +1,5 @@
 """The port's Hopper kernel and its wrapper on the card: kernel against its
-plain PyTorch version (2e-5 of max, the exact tier's bound), launch
+plain PyTorch version (2e-5 of each row's max, the exact tier's bound), launch
 counting, the wrapper's refusals on a CUDA tensor, and the session on the
 card against the same session on the CPU.
 
@@ -65,8 +65,9 @@ def test_kernel_matches_plain(card, cfg, pre_padded):
         x = torch.nn.functional.pad(x, (cfg.n_fft // 2, cfg.n_fft // 2))
     ref = tk.mel_power_ct_plain(x, s, cfg, T)
     assert got.shape == ref.shape == (3, T, cfg.n_mels) and got.device.type == "cuda"
-    rel = float((got - ref).abs().max() / ref.abs().max())
-    assert rel <= 2e-5, rel
+    # each row against its own max: the silent row's power is ~1e-12 of the others'
+    rel = (got - ref).abs().amax(dim=(1, 2)) / ref.abs().amax(dim=(1, 2))
+    assert float(rel.max()) <= 2e-5, rel
 
 
 def test_wrapper_refuses_on_cuda(card):
