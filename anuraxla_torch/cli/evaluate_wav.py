@@ -7,6 +7,12 @@ encoder is never reloaded per call. The encoder's weights come from
 ``--init-seed`` (a seeded init): the artifact loader is not ported yet.
 
     python -m anuraxla_torch.cli.evaluate_wav --wav clip.wav --config config.json
+    python -m anuraxla_torch.cli.evaluate_wav --wav clip.wav --serving-tier fast
+
+``--serving-tier`` (parity / balanced / fast) bundles the frontend mode, the
+frontend backend and the encoder dtype; ``--fast-frontend``,
+``--frontend-backend`` and ``--encoder-dtype`` override it when typed
+(``cli/common.py``).
 """
 
 from __future__ import annotations
@@ -18,8 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from anuraxla_torch.cli.common import add_batch_args, add_mel_args, mel_from_args, session_kwargs
 from anuraxla_torch.config import get_chunk_seconds, load_config, priority_ranks, read_radial
-from anuraxla_torch.constants import MelConfig
 from anuraxla_torch.detect.radial import radial_decide
 from anuraxla_torch.pipeline.dataset import load_wav_batch
 from anuraxla_torch.pipeline.session import EncoderSession
@@ -53,14 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", type=str, default="config.json")
     p.add_argument("--device", type=str, default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--init-seed", type=int, default=0, help="seed of the encoder's random init")
-    p.add_argument("--encoder-dtype", type=str, default="float32", choices=["float32", "bfloat16"])
-    p.add_argument("--sr", type=int, default=48000)
-    p.add_argument("--n-mels", type=int, default=64)
-    p.add_argument("--target-frames", type=int, default=192)
-    p.add_argument("--fmin", type=float, default=150.0)
-    p.add_argument("--fmax", type=float, default=15000.0)
-    p.add_argument("--hop-length", type=int, default=384)
-    p.add_argument("--n-fft", type=int, default=2048)
+    add_mel_args(p)
+    add_batch_args(p)
+    p.set_defaults(batch_size=1)
     return p
 
 
@@ -72,14 +73,9 @@ def main(argv=None) -> None:
     wav = Path(args.wav).expanduser().resolve()
     if not wav.exists():
         raise SystemExit(f"❌ WAV not found: {wav}")
-    mel = MelConfig(
-        sr=args.sr, duration=get_chunk_seconds(load_config(cfg_path)), n_mels=args.n_mels,
-        fmin=args.fmin, fmax=args.fmax, hop_length=args.hop_length, n_fft=args.n_fft,
-        target_frames=args.target_frames,
-    )
+    mel = mel_from_args(args, get_chunk_seconds(load_config(cfg_path)))
     session = EncoderSession(
-        mel=mel, batch_size=1, device=args.device, init_seed=args.init_seed,
-        encoder_dtype=args.encoder_dtype,
+        mel=mel, device=args.device, init_seed=args.init_seed, **session_kwargs(args),
     ).load()
     detected, sp, best_d = detect_species(wav, session, cfg_path)
     if detected:

@@ -1,14 +1,24 @@
-// Fused mel power on Hopper: pre-padded PCM rows -> [B, T, n_mels] f32.
+// Fused mel power on Hopper: PCM rows -> [B, T, n_mels] f32.
 //
-// Replaces the TPU kernel `_mel_power_ctp_kernel`
-// (anuraxla/ops/pallas_frontend.py:567) in its exact mode, as
-// `mel_power_pallas` drives it from its phase branch (:1030-1172). It ports
-// what that kernel computes, not its blocking:
+// Replaces three TPU kernels of anuraxla/ops/pallas_frontend.py, which
+// compute one function and differ in how Mosaic lets them assemble frames:
+//   - `_mel_power_ctp_kernel` (:567), exact mode, hop % 128 == 0, as
+//     `mel_power_pallas` drives it from its phase branch (:1030-1172);
+//   - the same kernel with exact=False (`_ct_outer_stage` :493-508): one
+//     bf16 pass per product (template BF16 below);
+//   - `_mel_power_ct_kernel` (:739), the stack-assembled kernel for
+//     hop % 32 == 0: its lane-phase copies, 5-D row views and
+//     tile_t*hop % 8192 rule answer Mosaic's alignment and have no
+//     counterpart here, where a frame is read at any sample offset.
+// It ports what those kernels compute, not their blocking:
 //
-//   mel[b, t, :] = sum_k |DFT_n(hann[n] * v[b, t*hop + n])[k]|^2 * fb[k, :]
+//   mel[b, t, :] = sum_k |DFT_n(hann[n] * v[b, (t0+t)*hop + n])[k]|^2 * fb[k, :]
 //   v = clip(y * s, -1, 1) if s > 0 else y     (fused RMS normalization)
 //
-// with the Cooley-Tukey split n = n1*128 + n2 (n1 < R = n_fft/128) and
+// over the centre-padded signal (n_fft/2 zeros before the row unless the row
+// is pre-padded), for frames t0 .. t0+T-1 (t0 > 0: the crop-first frontend
+// computes only the frames that survive the centre crop), with the
+// Cooley-Tukey split n = n1*128 + n2 (n1 < R = n_fft/128) and
 // k = q*R + r. Per frame:
 //   inner stage  A_r[n2] = sum_n1 x[n1*128 + n2] * W_R^(n1*r), only r <= R/2
 //                (radix 4x4 for R = 16, a literal-weight sum for other R);
@@ -34,6 +44,20 @@
 // on mel power against the f32 HIGHEST oracle). One TF32 tensor-core pass
 // would not.
 //
+// bf16 mode (BF16 = true). The TPU kernel's rounding points exactly: the
+// inner-stage planes a_re / a_im and the power p are rounded to bf16 where
+// they are written to shared memory, and the caller passes C/S/FBM tables
+// that hold the bf16 `hi` halves. Window and inner stage stay f32; every
+// product then has two bf16 operands, is exact in f32, and accumulates in
+// f32. This first version runs the same FFMA loops as the exact mode, so it
+// is no faster; mma.sync / wgmma on the rounded operands is the speed path.
+//
+// Any hop. Frames are read from the staged window at t*hop + n1*128 + n2
+// with scalar shared-memory loads: neighbouring threads read neighbouring
+// n2, so no 128-sample alignment of t*hop is assumed and no bank conflict
+// arises at hop = 32 * odd. Shared memory grows with hop ((TF-1)*hop +
+// n_fft staged samples): 152 KB at n_fft 2048 / hop 512.
+//
 // Bound on an H100 SXM. The function needs, per frame at DEFAULT_MEL
 // (n_fft 2048, hop 384, 64 mels), a 2048-point real FFT (~56 kFLOP), the
 // window, the power and the filterbank's 1231 nonzero weights: ~64 kFLOP.
@@ -48,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mel_stage.cuh"
+
 namespace {
 
 constexpr int TF = 32;          // frames per block
@@ -57,7 +83,7 @@ constexpr int PLANE = TF * NB;  // floats per A plane, layout [t][n2]
 constexpr int MAX_MJ = 4;       // n_mels <= 128
 
 struct Params {
-  const float* y;      // [B, L] pre-padded rows
+  const float* y;      // [B, L] rows
   const float* scale;  // [B] or nullptr
   const float* win;    // [n_fft] periodic Hann
   const float* C;      // [(R/2+1)*128, 128] folded cos table
@@ -67,10 +93,12 @@ struct Params {
   float* out;          // [B, T, n_mels]
   long long L;
   int T, n_fft, hop, n_mels, R;
+  int frame0;  // first frame computed; out[:, t] is frame frame0 + t
+  int pad_l;   // zeros before the row in the centre-padded signal
 };
 
 // Outer stage for one r: X = A_r @ (C_r - i S_r), power to `ps` [t][q].
-template <bool HAS_IM>
+template <bool HAS_IM, bool BF16>
 __device__ __forceinline__ void outer_power(const Params& p, int r,
                                             const float* __restrict__ are,
                                             const float* __restrict__ aim,
@@ -112,10 +140,10 @@ __device__ __forceinline__ void outer_power(const Params& p, int r,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float4 pw;
-    pw.x = xr[i][0] * xr[i][0] + xi[i][0] * xi[i][0];
-    pw.y = xr[i][1] * xr[i][1] + xi[i][1] * xi[i][1];
-    pw.z = xr[i][2] * xr[i][2] + xi[i][2] * xi[i][2];
-    pw.w = xr[i][3] * xr[i][3] + xi[i][3] * xi[i][3];
+    pw.x = rnd<BF16>(xr[i][0] * xr[i][0] + xi[i][0] * xi[i][0]);
+    pw.y = rnd<BF16>(xr[i][1] * xr[i][1] + xi[i][1] * xi[i][1]);
+    pw.z = rnd<BF16>(xr[i][2] * xr[i][2] + xi[i][2] * xi[i][2]);
+    pw.w = rnd<BF16>(xr[i][3] * xr[i][3] + xi[i][3] * xi[i][3]);
     *reinterpret_cast<float4*>(ps + (t0 + i) * NB + q0) = pw;
   }
 }
@@ -144,16 +172,18 @@ __device__ __forceinline__ void fb_accumulate(const Params& p, int r,
 
 // One r through outer stage, power and filterbank, with the block barriers
 // that separate the A planes, the power tile and the next writer.
+template <bool BF16>
 __device__ __forceinline__ void do_r(const Params& p, int r, const float* are,
                                      const float* aim, float* ps,
                                      float acc[2][MAX_MJ]) {
-  if (aim != nullptr) outer_power<true>(p, r, are, aim, ps);
-  else outer_power<false>(p, r, are, nullptr, ps);
+  if (aim != nullptr) outer_power<true, BF16>(p, r, are, aim, ps);
+  else outer_power<false, BF16>(p, r, are, nullptr, ps);
   __syncthreads();
   fb_accumulate(p, r, ps, acc);
   __syncthreads();
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(NTHREADS, 1)
 mel_power_ct_kernel(Params p) {
   extern __shared__ float smem[];
@@ -167,15 +197,10 @@ mel_power_ct_kernel(Params p) {
   const float* yrow = p.y + (long long)b * p.L;
   const float s = p.scale != nullptr ? p.scale[b] : -1.f;
 
-  // stage the tile's audio window; fused RMS: s > 0 -> clip(y*s, -1, 1),
-  // s <= 0 (silence sentinel) -> raw; zeros past the row end
-  const long long g0 = (long long)t_base * p.hop;
-  for (int i = threadIdx.x; i < n_aud; i += NTHREADS) {
-    const long long g = g0 + i;
-    float v = g < p.L ? yrow[g] : 0.f;
-    if (s > 0.f) v = fminf(fmaxf(v * s, -1.f), 1.f);
-    aud[i] = v;
-  }
+  // stage the tile's audio window (scaled and clipped; f32 in both modes:
+  // the window and the inner stage run in f32)
+  stage_audio<false>(aud, n_aud, yrow, p.L,
+                     (long long)(p.frame0 + t_base) * p.hop, p.pad_l, s);
   __syncthreads();
 
   float acc[2][MAX_MJ];
@@ -228,25 +253,25 @@ mel_power_ct_kernel(Params p) {
         const float v1r = zr[1] - zr[3], v1i = zi[1] - zi[3];
         const int o = t * NB + n2;
         if (r0 == 0) {
-          planes[0 * PLANE + o] = u0r + u1r;  // r = 0 (real)
-          planes[1 * PLANE + o] = v0r + v1i;  // r = 4
-          planes[2 * PLANE + o] = v0i - v1r;
-          planes[3 * PLANE + o] = u0r - u1r;  // r = 8 (real)
+          planes[0 * PLANE + o] = rnd<BF16>(u0r + u1r);  // r = 0 (real)
+          planes[1 * PLANE + o] = rnd<BF16>(v0r + v1i);  // r = 4
+          planes[2 * PLANE + o] = rnd<BF16>(v0i - v1r);
+          planes[3 * PLANE + o] = rnd<BF16>(u0r - u1r);  // r = 8 (real)
         } else {
-          planes[0 * PLANE + o] = u0r + u1r;  // r = r0
-          planes[1 * PLANE + o] = u0i + u1i;
-          planes[2 * PLANE + o] = v0r + v1i;  // r = r0 + 4
-          planes[3 * PLANE + o] = v0i - v1r;
+          planes[0 * PLANE + o] = rnd<BF16>(u0r + u1r);  // r = r0
+          planes[1 * PLANE + o] = rnd<BF16>(u0i + u1i);
+          planes[2 * PLANE + o] = rnd<BF16>(v0r + v1i);  // r = r0 + 4
+          planes[3 * PLANE + o] = rnd<BF16>(v0i - v1r);
         }
       }
       __syncthreads();
       if (r0 == 0) {
-        do_r(p, 0, planes, nullptr, ps, acc);
-        do_r(p, 4, planes + PLANE, planes + 2 * PLANE, ps, acc);
-        do_r(p, 8, planes + 3 * PLANE, nullptr, ps, acc);
+        do_r<BF16>(p, 0, planes, nullptr, ps, acc);
+        do_r<BF16>(p, 4, planes + PLANE, planes + 2 * PLANE, ps, acc);
+        do_r<BF16>(p, 8, planes + 3 * PLANE, nullptr, ps, acc);
       } else {
-        do_r(p, r0, planes, planes + PLANE, ps, acc);
-        do_r(p, r0 + 4, planes + 2 * PLANE, planes + 3 * PLANE, ps, acc);
+        do_r<BF16>(p, r0, planes, planes + PLANE, ps, acc);
+        do_r<BF16>(p, r0 + 4, planes + 2 * PLANE, planes + 3 * PLANE, ps, acc);
       }
     }
   } else {
@@ -263,11 +288,11 @@ mel_power_ct_kernel(Params p) {
           ar = fmaf(__ldg(p.wr + 2 * j), v, ar);
           ai = fmaf(-__ldg(p.wr + 2 * j + 1), v, ai);
         }
-        planes[t * NB + n2] = ar;
-        planes[PLANE + t * NB + n2] = ai;
+        planes[t * NB + n2] = rnd<BF16>(ar);
+        planes[PLANE + t * NB + n2] = rnd<BF16>(ai);
       }
       __syncthreads();
-      do_r(p, r, planes, has_im ? planes + PLANE : nullptr, ps, acc);
+      do_r<BF16>(p, r, planes, has_im ? planes + PLANE : nullptr, ps, acc);
     }
   }
 
@@ -298,23 +323,26 @@ long long mel_power_ct_smem_bytes(int n_fft, int hop) {
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// `bf16` != 0 selects the bf16 mode; C/S/FBM must then hold bf16 values.
 int mel_power_ct_launch(const float* y, long long L, const float* scale,
-                        const float* win, const float* C, const float* S,
-                        const float* FBM, const float* wr, float* out, int B,
-                        int T, int n_fft, int hop, int n_mels, void* stream) {
+                        const float* C, const float* S, const float* FBM,
+                        const float* win, const float* wr, float* out, int B,
+                        int T, int frame0, int pad_l, int n_fft, int hop,
+                        int n_mels, int bf16, void* stream) {
   if (n_fft % NB != 0 || n_fft < 2 * NB || n_mels < 1 || n_mels > 32 * MAX_MJ ||
-      B < 1 || T < 1 || B > 65535)
+      B < 1 || T < 1 || B > 65535 || hop < 1 || frame0 < 0 || pad_l < 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.y = y; p.scale = scale; p.win = win; p.C = C; p.S = S; p.FBM = FBM;
   p.wr = wr; p.out = out; p.L = L; p.T = T; p.n_fft = n_fft; p.hop = hop;
-  p.n_mels = n_mels; p.R = n_fft / NB;
+  p.n_mels = n_mels; p.R = n_fft / NB; p.frame0 = frame0; p.pad_l = pad_l;
   const long long smem = mel_power_ct_smem_bytes(n_fft, hop);
+  auto kernel = bf16 ? mel_power_ct_kernel<true> : mel_power_ct_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      mel_power_ct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + TF - 1) / TF, B);
-  mel_power_ct_kernel<<<grid, NTHREADS, (size_t)smem, (cudaStream_t)stream>>>(p);
+  kernel<<<grid, NTHREADS, (size_t)smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

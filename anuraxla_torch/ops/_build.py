@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``anuraxla_torch/_build/lib<name>-<hash>.so``,
-keyed by the source's content) and loaded with ``ctypes`` at first use. Only
+keyed by the content of the source and of the ``*.cuh`` headers beside it)
+and loaded with ``ctypes`` at first use; ``build`` compiles several sources
+at once, one ``nvcc`` each. Only
 the repository's sources are read. No PyTorch headers are included, so a
 build takes seconds. ``ptxas``'s report (registers, spills) is kept beside the
 library as ``lib<name>-<hash>.log``. A missing ``nvcc`` or a failed build
@@ -17,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -41,29 +43,51 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, keyed by the content of its source, of the headers
+    beside it and of the compiler flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def _build(name: str) -> None:
-    out = lib_path(name)
+def sources() -> list[str]:
+    """The names of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build(names: Iterable[str]) -> None:
+    """Build the libraries of ``names`` that are missing: one ``nvcc`` for
+    each source, all started together. Raises if any build fails."""
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, out)  # atomic: a reader never sees half a file
+    running = []
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)  # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if it is missing."""
     lib = _loaded.get(name)
     if lib is None:
-        if not lib_path(name).exists():
-            _build(name)
+        build([name])
         lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib

@@ -1,15 +1,25 @@
 """Batched audio frontend: waveform rows -> model-ready log-mels — the port
-of ``anuraxla/ops/frontend.py`` in its parity mode.
+of ``anuraxla/ops/frontend.py``.
 
 ``parity=True``: the STFT covers the full clip; the dB reference (per-row
 max), the 80 dB floor and the mean/std standardization are taken over all
 frames before the center crop to ``target_frames`` — the reference order.
+``parity=False`` (the fast frontend): only the ``target_frames`` frames that
+survive the center crop are computed, and the statistics are taken over that
+cropped plane — fewer frames of work, statistically equivalent for
+detection, not bit-identical to the parity order.
 
-Backends (named apart from the JAX package's, so no cache key can mix the
-two frameworks' latents):
-- ``"cuda"``: the fused mel kernel (``ops.mel_kernel.mel_power``) — the
-  Hopper kernel on a CUDA tensor, its plain PyTorch version on a CPU tensor;
-- ``"matmul"``: dense STFT bases + filterbank matmul in full f32.
+Backends:
+- ``"cuda"``: the fused mel kernels in exact f32 (``ops.mel_kernel.mel_power``)
+  — a Hopper kernel on a CUDA tensor, its plain PyTorch version on a CPU
+  tensor;
+- ``"cuda-bf16"``: the same kernels in their bf16 mode (one bf16 pass per
+  product, f32 sums);
+- ``"matmul"``: dense STFT bases + filterbank matmul in full f32;
+- ``"matmul-bf16"``: the same with the matmul operands rounded to bf16.
+The JAX package names its kernel backends ``pallas`` / ``pallas-bf16``; the
+matmul names are shared, so a cache key also carries a framework tag
+(``pipeline.session.session_fingerprint``).
 """
 
 from __future__ import annotations
@@ -19,10 +29,10 @@ import torch
 from anuraxla_torch.constants import RMS_EPS, RMS_SILENCE_GATE, RMS_TARGET, MelConfig
 from anuraxla_torch.ops.mel import STANDARDIZE_EPS, crop_or_pad_time, mean_std, mel_filterbank, power_to_db
 from anuraxla_torch.ops.mel_kernel import apply_rms_scale, kernel_takes, mel_power, phase_padded_layout
-from anuraxla_torch.ops.stft import stft_power
+from anuraxla_torch.ops.stft import round_bf16, stft_power
 from anuraxla_torch.utils.precision import exact_f32
 
-BACKENDS = ("cuda", "matmul")
+BACKENDS = ("cuda", "cuda-bf16", "matmul", "matmul-bf16")
 
 
 def rms_normalize_batch(
@@ -74,13 +84,15 @@ def rms_normalize_np(
 
 def resolved_backend(cfg: MelConfig, backend: str) -> str:
     """The frontend whose math runs for (cfg, backend). Only the config gate
-    carries over from the reference: ``"cuda"`` names ``"matmul"`` for a
-    config the kernel does not take. There is no device fallback — a
-    ``"cuda"`` backend on a CUDA tensor launches the kernel or raises."""
+    carries over from the reference: a kernel backend names its matmul
+    counterpart (``"cuda"`` -> ``"matmul"``, ``"cuda-bf16"`` ->
+    ``"matmul-bf16"``, which keeps the reduced-precision intent) for a config
+    no kernel takes. There is no device fallback — a kernel backend on a CUDA
+    tensor launches the kernel or raises."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if backend == "cuda" and not kernel_takes(cfg):
-        return "matmul"
+    if backend.startswith("cuda") and not kernel_takes(cfg):
+        return backend.replace("cuda", "matmul")
     return backend
 
 
@@ -96,28 +108,43 @@ def log_mel_batch(
     """[B, num_samples] f32 waveforms -> [B, target_frames, n_mels] log-mels.
 
     ``rms_scale`` [B] (from :func:`rms_scale_batch`) fuses RMS normalization
-    into the mel op. ``pre_padded``: rows are in ``phase_padded_layout``;
-    on the matmul backend the valid region is sliced back out.
+    into the mel op. ``pre_padded``: rows are in ``phase_padded_layout`` for
+    the frames computed; on the matmul backends the valid region is sliced
+    back out (parity mode only: the fast frontend's layout drops the tail).
     """
-    if not parity:
-        raise NotImplementedError("the fast frontend (parity=False) is not ported yet")
     if y.ndim == 1:
         y = y[None]
-    num_frames = cfg.total_frames
+    if parity:
+        num_frames, first = cfg.total_frames, 0
+    else:
+        total = cfg.total_frames
+        num_frames = min(cfg.target_frames, total)
+        first = max(0, (total - cfg.target_frames) // 2)
     backend = resolved_backend(cfg, backend)
-    if backend == "cuda":
-        S = mel_power(y, cfg, num_frames=num_frames, rms_scale=rms_scale, pre_padded=pre_padded)
+    if backend.startswith("cuda"):
+        S = mel_power(y, cfg, num_frames=num_frames, first_frame=first, rms_scale=rms_scale,
+                      pre_padded=pre_padded, exact=backend == "cuda")
     else:
         if pre_padded:
+            if first:
+                raise ValueError(
+                    "pre_padded input requires a mel kernel in fast-frontend "
+                    "mode (the padded layout drops the tail)"
+                )
             _, pad_l = phase_padded_layout(cfg, num_frames)
             y = y[:, pad_l : pad_l + cfg.num_samples]
         y = apply_rms_scale(y, rms_scale)
-        P = stft_power(y, n_fft=cfg.n_fft, hop_length=cfg.hop_length, num_frames=num_frames)
+        bf16 = backend == "matmul-bf16"
+        P = stft_power(y, n_fft=cfg.n_fft, hop_length=cfg.hop_length, num_frames=num_frames,
+                       first_frame=first, bf16=bf16)
         fb = torch.from_numpy(mel_filterbank(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)).to(y.device)
+        if bf16:
+            P, fb = round_bf16(P), round_bf16(fb)
         with exact_f32():
             S = P @ fb
-    # stats-first epilogue: dB ref and mean/std over the full [T, M] plane,
-    # normalize only the cropped frames (the affine map commutes with the crop)
+    # stats-first epilogue: dB ref and mean/std over the computed [T, M] plane
+    # (the full clip in parity mode), normalize only the cropped frames (the
+    # affine map commutes with the crop)
     S_db = power_to_db(S, amin=cfg.amin, top_db=cfg.top_db)
     mean, std = mean_std(S_db)
     if S_db.shape[-2] >= cfg.target_frames:

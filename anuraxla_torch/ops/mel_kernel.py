@@ -1,5 +1,5 @@
-"""Fused mel power — the port of ``anuraxla/ops/pallas_frontend.py``'s
-main-path kernel (``_mel_power_ctp_kernel``, exact mode).
+"""Fused mel power — the port of ``anuraxla/ops/pallas_frontend.py``: its
+three TPU kernels and ``mel_power_pallas``, the function that selects one.
 
 - ``phase_padded_layout`` / ``kernel_supported``: copies of the reference's
   ``phase_padded_layout`` and ``pallas_supported`` (the same gate), so host
@@ -7,12 +7,32 @@ main-path kernel (``_mel_power_ctp_kernel``, exact mode).
 - ``ct_tables_folded``: the twiddle-folded Cooley–Tukey tables C/S, the
   merged filterbank FBM and the window, in float32 rounded from the same
   float64 construction as the reference's ``_ct_tables_folded`` (which
-  splits them into bf16 hi/lo pairs for the TPU's matrix unit instead).
-- ``mel_power_ct_plain``: the plain PyTorch version of the kernel's math.
-- ``mel_power``: the wrapper. On a CUDA tensor it launches the hand-written
-  Hopper kernel (``csrc/mel_power_ct.cu``) or raises; it takes the plain
-  version only for a tensor on the CPU. ``mel_power.launches`` counts the
-  kernel launches.
+  splits them into bf16 hi/lo pairs for the TPU's matrix unit instead);
+  ``ct_tables_bf16``: the bf16 ``hi`` halves the bf16 mode multiplies by,
+  bitwise the reference's. ``dense_tables``: the windowed DFT bases and the
+  filterbank of the dense kernel, frequency axis zero-padded to 128s.
+- ``mel_power_ct_plain`` / ``mel_power_dense_plain``: the plain PyTorch
+  versions of the kernels' math, exact and bf16.
+- ``mel_power``: the wrapper. On a CUDA tensor it launches a hand-written
+  Hopper kernel (``csrc/mel_power_ct.cu`` or ``csrc/mel_power_dense.cu``) or
+  raises; it takes a plain version only for a tensor on the CPU.
+  ``mel_power.launches`` counts the kernel launches by kernel and mode.
+
+Which kernel runs (``kernel_name``):
+
+=====================  =========  =====  ==================================
+name                   algorithm  exact  config
+=====================  =========  =====  ==================================
+``mel_power_ct``       ct         yes    n_fft % 128 == 0, hop % 128 == 0
+``mel_power_ct_hop32`` ct         yes    n_fft % 128 == 0, hop % 32 == 0
+``mel_power_ct_bf16``  ct         no     n_fft % 128 == 0, hop % 32 == 0
+``mel_power_dense``    dense      yes    hop % 16 == 0
+``mel_power_dense_bf16`` dense    no     hop % 16 == 0
+=====================  =========  =====  ==================================
+
+The first three are one source (``mel_power_ct.cu``): on this card a frame
+is read at any sample offset, so the reference's separate kernel for
+hop % 128 != 0 needs no code of its own.
 """
 
 from __future__ import annotations
@@ -26,11 +46,11 @@ import torch.nn.functional as F
 
 from anuraxla_torch.constants import MelConfig
 from anuraxla_torch.ops.mel import mel_filterbank
-from anuraxla_torch.ops.stft import hann_window
+from anuraxla_torch.ops.stft import _dft_bases, frames_of_padded, hann_window, round_bf16
 from anuraxla_torch.utils.precision import exact_f32
 
 TILE_T = 128  # the reference kernel's frame tile; fixes the padded row length
-KERNEL = "mel_power_ct"
+MAX_MELS = 128
 
 
 def phase_padded_layout(cfg: MelConfig, num_frames: int) -> tuple[int, int]:
@@ -56,9 +76,7 @@ def phase_padded_layout(cfg: MelConfig, num_frames: int) -> tuple[int, int]:
 
 def kernel_supported(cfg: MelConfig, algorithm: str = "auto") -> bool:
     """The reference's support gate (``pallas_supported``): ct needs n_fft a
-    >= 2 multiple of 128 and hop % 32 == 0; dense needs hop % 16 == 0. Kept
-    as the copy that the tests hold to ``pallas_supported``; the port decides
-    with :func:`kernel_takes`."""
+    >= 2 multiple of 128 and hop % 32 == 0; dense needs hop % 16 == 0."""
     hop, n_fft = cfg.hop_length, cfg.n_fft
     ct_ok = n_fft % 128 == 0 and n_fft >= 256 and hop % 32 == 0
     dense_ok = (8 * hop) % 128 == 0
@@ -69,10 +87,45 @@ def kernel_supported(cfg: MelConfig, algorithm: str = "auto") -> bool:
     return ct_ok or dense_ok
 
 
-def kernel_takes(cfg: MelConfig) -> bool:
-    """Whether the Hopper kernel computes this config: the ct family with
-    hop % 128 == 0 (the reference's phase branch) and at most 128 mels."""
-    return kernel_supported(cfg, "ct") and cfg.hop_length % 128 == 0 and cfg.n_mels <= 128
+def resolve_algorithm(cfg: MelConfig, algorithm: str = "auto") -> str:
+    """"ct" or "dense" for (cfg, algorithm): "auto" takes ct where it can,
+    else dense. The one place that refuses a config — with the reference's
+    refusals (``mel_power_pallas``), and above 128 mels (the kernels keep a
+    frame's mels in 4 registers a lane)."""
+    hop, n_fft = cfg.hop_length, cfg.n_fft
+    if algorithm not in ("auto", "ct", "dense"):
+        raise ValueError(f"algorithm must be auto/ct/dense, got {algorithm!r}")
+    ct_ok = kernel_supported(cfg, "ct")
+    if not kernel_supported(cfg, algorithm):
+        raise NotImplementedError({
+            "auto": f"the mel kernels need hop_length % 32 == 0 (ct) or % 16 == 0 "
+                    f"(dense); got hop={hop}. Use backend='matmul'.",
+            "ct": f"ct kernel needs n_fft a >=2 multiple of 128 and hop % 32 == 0, "
+                  f"got n_fft={n_fft}, hop={hop}",
+            "dense": f"dense kernel needs hop % 16 == 0, got {hop}",
+        }[algorithm])
+    if cfg.n_mels > MAX_MELS:
+        raise NotImplementedError(f"the mel kernels take at most {MAX_MELS} mels, got {cfg.n_mels}")
+    return ("ct" if ct_ok else "dense") if algorithm == "auto" else algorithm
+
+
+def kernel_takes(cfg: MelConfig, algorithm: str = "auto") -> bool:
+    """Whether a Hopper kernel computes this config (``resolve_algorithm``
+    does not refuse it)."""
+    try:
+        resolve_algorithm(cfg, algorithm)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def kernel_name(cfg: MelConfig, algorithm: str, exact: bool) -> str:
+    """The launch counter's key for a resolved algorithm (module docstring)."""
+    if algorithm == "dense":
+        return "mel_power_dense" if exact else "mel_power_dense_bf16"
+    if not exact:
+        return "mel_power_ct_bf16"
+    return "mel_power_ct" if cfg.hop_length % 128 == 0 else "mel_power_ct_hop32"
 
 
 @functools.lru_cache(maxsize=8)
@@ -126,15 +179,49 @@ def inner_weights(R: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
-def _tables(cfg: MelConfig, device: torch.device):
-    """(C, S, FBM, win, wr) as f32 tensors on ``device``."""
-    return _device_tables(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax, str(device))
+def ct_tables_bf16(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float):
+    """(C, S, FBM) as bf16 tensors: the ``hi`` halves of the reference's
+    split tables (``_split_bf16_np``: float64 -> float32 -> bf16), which
+    alone serve its bf16 mode."""
+    C, S, FBM, _ = ct_tables_folded(sr, n_fft, n_mels, fmin, fmax)
+    return tuple(torch.from_numpy(a).to(torch.bfloat16) for a in (C, S, FBM))
 
 
 @functools.lru_cache(maxsize=8)
-def _device_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, device: str):
-    C, S, FBM, win = ct_tables_folded(sr, n_fft, n_mels, fmin, fmax)
-    return tuple(torch.from_numpy(a).to(device) for a in (C, S, FBM, win, inner_weights(n_fft // 128)))
+def dense_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float):
+    """(C, S, FB) of the dense kernel as float32 numpy arrays: the windowed
+    DFT bases [n_fft, n_freq_pad] and the filterbank [n_freq_pad, n_mels],
+    the frequency axis zero-padded to a multiple of 128 (exact-zero
+    contributions), as the reference's ``_padded_tables``."""
+    cos_b, sin_b = _dft_bases(n_fft)
+    fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
+    pad = -cos_b.shape[1] % 128
+    return (
+        np.ascontiguousarray(np.pad(cos_b, ((0, 0), (0, pad)))),
+        np.ascontiguousarray(np.pad(sin_b, ((0, 0), (0, pad)))),
+        np.ascontiguousarray(np.pad(fb, ((0, pad), (0, 0)))),
+    )
+
+
+def _tables(cfg: MelConfig, device: torch.device, algorithm: str = "ct", exact: bool = True):
+    """The kernel's tables as f32 tensors on ``device`` — ct: (C, S, FBM, win,
+    wr); dense: (C, S, FB). With ``exact=False`` C/S/FBM/FB hold bf16 values."""
+    return _device_tables(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax, str(device), algorithm, exact)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_tables(sr, n_fft, n_mels, fmin, fmax, device: str, algorithm: str, exact: bool):
+    args = (sr, n_fft, n_mels, fmin, fmax)
+    if algorithm == "dense":
+        mats = [torch.from_numpy(a) for a in dense_tables(*args)]
+        if not exact:
+            mats = [round_bf16(a) for a in mats]
+        rest = []
+    else:
+        *mats, win = ct_tables_folded(*args)
+        mats = [torch.from_numpy(a) for a in mats] if exact else [t.float() for t in ct_tables_bf16(*args)]
+        rest = [torch.from_numpy(win), torch.from_numpy(inner_weights(n_fft // 128))]
+    return tuple(t.to(device) for t in mats + rest)
 
 
 def apply_rms_scale(y: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
@@ -151,21 +238,28 @@ def mel_power_ct_plain(
     scale: torch.Tensor | None,
     cfg: MelConfig,
     num_frames: int,
+    *,
+    first_frame: int = 0,
+    exact: bool = True,
+    sums: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: [B, L] rows whose frame t starts
-    at sample t·hop (the pre-padded layout) -> mel power [B, num_frames,
-    n_mels]. Same scale and clip, Hann window, literal-weight R-point inner
-    DFT over the 128-sample blocks (r <= R/2), per-r f32 products against
-    the folded C/S tables, power, merged filterbank."""
-    n_fft, hop = cfg.n_fft, cfg.hop_length
-    R = n_fft // 128
-    C, S, FBM, win, wr = _tables(cfg, y_padded.device)
-    y = apply_rms_scale(y_padded, scale)
-    need = (num_frames - 1) * hop + n_fft
-    if need > y.shape[1]:
-        y = F.pad(y, (0, need - y.shape[1]))
-    frames = y.unfold(-1, n_fft, hop)[:, :num_frames] * win  # [B, T, n_fft]
-    blocks = frames.reshape(y.shape[0], num_frames, R, 128)
+    """Plain PyTorch version of the Cooley–Tukey kernel: [B, L] centre-padded
+    rows (frame t starts at sample t·hop) -> mel power [B, num_frames,
+    n_mels] of frames first_frame... Same scale and clip, Hann window,
+    literal-weight R-point inner DFT over the 128-sample blocks (r <= R/2),
+    per-r f32 products against the folded C/S tables, power, merged
+    filterbank. ``exact=False`` is the bf16 mode: the inner-stage planes and
+    the power are rounded to bf16 and the tables are their bf16 ``hi``
+    halves; products and sums stay f32 (the reference's rounding points).
+    ``sums=torch.float64`` takes every product and sum after the scale in
+    f64, rounding points unchanged: the value that any order of f32 sums
+    approximates, for telling a summation-order difference from a fault."""
+    R = cfg.n_fft // 128
+    C, S, FBM, win, _ = (t.to(sums) for t in _tables(cfg, y_padded.device, "ct", exact))
+    rnd = (lambda x: x) if exact else (lambda x: round_bf16(x).to(sums))
+    frames = frames_of_padded(apply_rms_scale(y_padded, scale), n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+                              num_frames=num_frames, first_frame=first_frame).to(sums) * win
+    blocks = frames.reshape(frames.shape[0], num_frames, R, 128)
     wr64 = inner_weights(R)
     acc = None
     with exact_f32():
@@ -180,28 +274,60 @@ def mel_power_ct_plain(
                 if sw != 0.0:
                     a_im = blk * sw if a_im is None else a_im + blk * sw
             sl = slice(r * 128, (r + 1) * 128)
+            a_re = rnd(a_re)
             x_re = a_re @ C[sl]
             x_im = -(a_re @ S[sl])
             if a_im is not None:
+                a_im = rnd(a_im)
                 x_re = x_re + a_im @ S[sl]
                 x_im = x_im + a_im @ C[sl]
-            p = x_re * x_re + x_im * x_im
+            p = rnd(x_re * x_re + x_im * x_im)
             contrib = p @ FBM[sl]
             acc = contrib if acc is None else acc + contrib
-    return acc
+    return acc.float()
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    """The kernel library, built at first use, with its C signatures bound."""
+def mel_power_dense_plain(
+    y_padded: torch.Tensor,
+    scale: torch.Tensor | None,
+    cfg: MelConfig,
+    num_frames: int,
+    *,
+    first_frame: int = 0,
+    exact: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of the dense kernel: frames against the
+    windowed DFT bases, power, filterbank, all f32. ``exact=False`` rounds
+    the frames, the bases, the power and the filterbank to bf16 (the
+    reference kernel's DEFAULT precision on the TPU); sums stay f32."""
+    C, S, FB = _tables(cfg, y_padded.device, "dense", exact)
+    rnd = (lambda x: x) if exact else round_bf16
+    frames = frames_of_padded(rnd(apply_rms_scale(y_padded, scale)), n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+                              num_frames=num_frames, first_frame=first_frame)
+    with exact_f32():
+        re = frames @ C
+        im = frames @ S
+        return rnd(re * re + im * im) @ FB
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(name: str):
+    """A kernel library, built at first use, with its C signatures bound."""
     from anuraxla_torch.ops import _build
 
-    lib = _build.load(KERNEL)
+    lib = _build.load(name)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mel_power_ct_launch.argtypes = [vp, i64, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
-    lib.mel_power_ct_launch.restype = i32
-    lib.mel_power_ct_smem_bytes.argtypes = [i32, i32]
-    lib.mel_power_ct_smem_bytes.restype = i64
+    launch = getattr(lib, f"{name}_launch")
+    if name == "mel_power_ct":
+        # y, L, scale, C, S, FBM, win, wr, out, B, T, frame0, pad_l, n_fft, hop, n_mels, bf16, stream
+        launch.argtypes = [vp, i64, vp, vp, vp, vp, vp, vp, vp, *[i32] * 8, vp]
+    else:
+        # y, L, scale, C, S, FB, out, B, T, frame0, pad_l, n_fft, hop, n_mels, n_freq_pad, bf16, stream
+        launch.argtypes = [vp, i64, vp, vp, vp, vp, vp, *[i32] * 9, vp]
+    launch.restype = i32
+    smem = getattr(lib, f"{name}_smem_bytes")
+    smem.argtypes = [i32, i32]
+    smem.restype = i64
     return lib
 
 
@@ -213,42 +339,60 @@ def mel_power(
     cfg: MelConfig,
     *,
     num_frames: int,
+    first_frame: int = 0,
     rms_scale: torch.Tensor | None = None,
     pre_padded: bool = False,
+    exact: bool = True,
+    algorithm: str = "auto",
 ) -> torch.Tensor:
-    """[B, L] f32 waveforms -> mel power [B, num_frames, n_mels] f32.
+    """[B, L] f32 waveforms -> mel power [B, num_frames, n_mels] f32 of the
+    centred frames first_frame .. first_frame + num_frames − 1.
 
-    ``pre_padded``: rows are already in :func:`phase_padded_layout`;
-    otherwise they are [B, num_samples] and padded by n_fft//2 here.
+    ``exact``: full-f32 arithmetic; False is the bf16 mode (one bf16 pass per
+    product, f32 sums). ``algorithm``: "ct" (Cooley–Tukey, n_fft a >= 2
+    multiple of 128 and hop % 32 == 0), "dense" (windowed-DFT bases,
+    hop % 16 == 0) or "auto" (ct where it can). ``first_frame``: the
+    crop-first frontend computes only the frames that survive its crop.
+    ``pre_padded``: rows are already in :func:`phase_padded_layout` for
+    first_frame + num_frames frames (ct with hop % 128 == 0 only);
+    otherwise they are [B, num_samples], centred by n_fft//2.
     ``rms_scale`` [B]: rows with s > 0 are clip(y·s, −1, 1)'d before the
     window, rows with s <= 0 pass through raw.
 
-    A CUDA tensor goes to the Hopper kernel, or this raises; a CPU tensor
-    goes to :func:`mel_power_ct_plain`.
+    A CUDA tensor goes to a Hopper kernel, or this raises; a CPU tensor goes
+    to the kernel's plain version.
     """
     if y.ndim != 2:
         raise ValueError(f"expected [B, L] rows, got shape {tuple(y.shape)}")
-    if not kernel_takes(cfg):
-        raise NotImplementedError(
-            f"the mel kernel needs n_fft a >= 2 multiple of 128, hop % 128 == 0 "
-            f"and n_mels <= 128; got n_fft={cfg.n_fft}, hop={cfg.hop_length}, "
-            f"n_mels={cfg.n_mels} (frontend backend 'matmul' takes it)"
-        )
-    L_pad, pad_l = phase_padded_layout(cfg, num_frames)
-    if pre_padded and y.shape[1] != L_pad:
-        raise ValueError(
-            f"pre_padded input must be the phase_padded_layout length {L_pad} "
-            f"for num_frames={num_frames}, got {y.shape[1]}"
-        )
-    if not pre_padded:
-        y = F.pad(y, (pad_l, pad_l))
+    if num_frames < 1 or first_frame < 0:
+        raise ValueError(f"need num_frames >= 1 and first_frame >= 0, got {num_frames}, {first_frame}")
+    algorithm = resolve_algorithm(cfg, algorithm)
+    pad_l = cfg.n_fft // 2
+    if pre_padded:
+        if algorithm != "ct" or cfg.hop_length % 128 != 0:
+            raise ValueError(
+                "pre_padded=True requires the ct kernel at hop % 128 == 0 (the "
+                "phase_padded_layout) — slice the valid region out for other "
+                "paths (log_mel_batch does this on the matmul backends)"
+            )
+        L_pad, _ = phase_padded_layout(cfg, first_frame + num_frames)
+        if y.shape[1] != L_pad:
+            raise ValueError(
+                f"pre_padded input must be the phase_padded_layout length {L_pad} "
+                f"for num_frames={first_frame + num_frames}, got {y.shape[1]}"
+            )
+        pad_l = 0
     if rms_scale is not None and rms_scale.shape != (y.shape[0],):
         raise ValueError(f"rms_scale must be [{y.shape[0]}], got {tuple(rms_scale.shape)}")
 
     if y.device.type == "cpu":
-        return mel_power_ct_plain(y, rms_scale, cfg, num_frames)
+        plain = mel_power_ct_plain if algorithm == "ct" else mel_power_dense_plain
+        return plain(F.pad(y, (pad_l, pad_l)), rms_scale, cfg, num_frames,
+                     first_frame=first_frame, exact=exact)
     if y.device.type != "cuda":
         raise ValueError(f"mel_power runs on cuda or cpu tensors, got {y.device}")
+    if not pre_padded:
+        y = y.contiguous()
     if y.dtype != torch.float32 or not y.is_contiguous():
         raise ValueError("mel_power needs contiguous float32 rows")
     if rms_scale is not None and (
@@ -259,25 +403,37 @@ def mel_power(
     B, L = y.shape
     if B > 65535:
         raise ValueError(f"at most 65535 rows per launch, got {B}")
-    lib = _lib()
-    smem = lib.mel_power_ct_smem_bytes(cfg.n_fft, cfg.hop_length)
+    source = "mel_power_ct" if algorithm == "ct" else "mel_power_dense"
+    lib = _lib(source)
+    smem = getattr(lib, f"{source}_smem_bytes")(cfg.n_fft, cfg.hop_length)
     if smem > SMEM_LIMIT:
         raise NotImplementedError(
             f"n_fft={cfg.n_fft}, hop={cfg.hop_length} needs {smem} B of shared memory"
         )
-    C, S, FBM, win, wr = _tables(cfg, y.device)
+    tables = _tables(cfg, y.device, algorithm, exact)
     out = torch.empty((B, num_frames, cfg.n_mels), device=y.device, dtype=torch.float32)
+    shape = [cfg.n_fft, cfg.hop_length, cfg.n_mels]
+    if algorithm == "dense":
+        shape.append(tables[0].shape[1])  # n_freq_pad
     with torch.cuda.device(y.device):
-        err = lib.mel_power_ct_launch(
+        err = getattr(lib, f"{source}_launch")(
             y.data_ptr(), L, rms_scale.data_ptr() if rms_scale is not None else None,
-            win.data_ptr(), C.data_ptr(), S.data_ptr(), FBM.data_ptr(), wr.data_ptr(),
-            out.data_ptr(), B, num_frames, cfg.n_fft, cfg.hop_length, cfg.n_mels,
+            *(t.data_ptr() for t in tables), out.data_ptr(),
+            B, num_frames, first_frame, pad_l, *shape, int(not exact),
             torch.cuda.current_stream(y.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"mel_power_ct launch failed: cudaError_t {err}")
-    mel_power.launches += 1
+        raise RuntimeError(f"{source} launch failed: cudaError_t {err}")
+    mel_power.launches[kernel_name(cfg, algorithm, exact)] += 1
     return out
 
 
-mel_power.launches = 0
+KERNEL_NAMES = ("mel_power_ct", "mel_power_ct_hop32", "mel_power_ct_bf16",
+                "mel_power_dense", "mel_power_dense_bf16")
+# launches by kernel and mode; a wrapper adds one where it launches, nowhere else
+mel_power.launches = dict.fromkeys(KERNEL_NAMES, 0)
+
+
+def reset_launches() -> None:
+    for name in KERNEL_NAMES:
+        mel_power.launches[name] = 0

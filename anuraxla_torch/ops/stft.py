@@ -3,12 +3,13 @@
 ``hann_window`` and ``_dft_bases`` are numpy copies (pinned bitwise to the
 reference by a test). ``stft_power`` is the dense ``"matmul"`` backend:
 frames [B·T, n_fft] times the windowed cos/-sin bases [n_fft, n_freq], in
-full f32. It is the dense oracle the mel kernel is tested against, and the
-path for configs the kernel does not take (``frontend.resolved_backend``).
+full f32 or (``bf16=True``, the ``"matmul-bf16"`` backend) with both operands
+rounded to bf16. It is the dense oracle the mel kernels are tested against,
+and the path for configs no kernel takes (``frontend.resolved_backend``).
 
 librosa parity: the Hann window is periodic (fftbins=True); frames are
-centered (n_fft//2 zeros on both sides). The fast frontend's frame offset
-is not ported yet.
+centered (n_fft//2 zeros on both sides). ``first_frame`` lets the crop-first
+frontend compute only the frames that survive the center crop.
 """
 
 from __future__ import annotations
@@ -44,23 +45,50 @@ def _dft_bases(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
     )
 
 
-def frame_signal(y: torch.Tensor, *, n_fft: int, hop_length: int, num_frames: int) -> torch.Tensor:
-    """[B, L] -> [B, num_frames, n_fft] centered frames (librosa
+def frames_of_padded(
+    y_padded: torch.Tensor, *, n_fft: int, hop_length: int, num_frames: int, first_frame: int = 0
+) -> torch.Tensor:
+    """[B, L] rows whose frame t starts at sample t·hop -> [B, num_frames,
+    n_fft] frames first_frame.., as a strided view; frames past the row's end
+    read zeros."""
+    need = (first_frame + num_frames - 1) * hop_length + n_fft
+    if need > y_padded.shape[1]:
+        y_padded = F.pad(y_padded, (0, need - y_padded.shape[1]))
+    return y_padded.unfold(-1, n_fft, hop_length)[:, first_frame : first_frame + num_frames]
+
+
+def frame_signal(
+    y: torch.Tensor, *, n_fft: int, hop_length: int, num_frames: int, first_frame: int = 0
+) -> torch.Tensor:
+    """[B, L] -> [B, num_frames, n_fft] centered frames first_frame.. (librosa
     center=True: n_fft//2 zeros on each side; frames past the end read
-    zeros), as a strided view of the padded signal."""
+    zeros)."""
     pad = n_fft // 2
-    y = F.pad(y, (pad, pad))
-    need = (num_frames - 1) * hop_length + n_fft
-    if need > y.shape[1]:
-        y = F.pad(y, (0, need - y.shape[1]))
-    return y.unfold(-1, n_fft, hop_length)[:, :num_frames]
+    return frames_of_padded(F.pad(y, (pad, pad)), n_fft=n_fft, hop_length=hop_length,
+                            num_frames=num_frames, first_frame=first_frame)
 
 
-def stft_power(y: torch.Tensor, *, n_fft: int, hop_length: int, num_frames: int) -> torch.Tensor:
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 (nearest even) and back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def stft_power(
+    y: torch.Tensor, *, n_fft: int, hop_length: int, num_frames: int,
+    first_frame: int = 0, bf16: bool = False,
+) -> torch.Tensor:
     """Centered |STFT|² of [B, L] f32 signals -> [B, num_frames,
-    n_fft//2 + 1] (time-major), dense windowed-DFT bases in full f32."""
-    frames = frame_signal(y, n_fft=n_fft, hop_length=hop_length, num_frames=num_frames)
+    n_fft//2 + 1] (time-major), dense windowed-DFT bases in full f32.
+
+    ``bf16=True`` rounds the frames and the bases to bf16 and accumulates in
+    f32: what the reference's ``Precision.DEFAULT`` does on a TPU. JAX on a
+    CPU computes DEFAULT in f32, so a CPU comparison with the reference holds
+    this mode only to the bf16 tolerance (1e-2 of the spectrum's max)."""
+    frames = frame_signal(y, n_fft=n_fft, hop_length=hop_length, num_frames=num_frames,
+                          first_frame=first_frame)
     cos_b, sin_b = (torch.from_numpy(b).to(y.device) for b in _dft_bases(n_fft))
+    if bf16:
+        frames, cos_b, sin_b = round_bf16(frames), round_bf16(cos_b), round_bf16(sin_b)
     with exact_f32():
         re = torch.matmul(frames, cos_b)
         im = torch.matmul(frames, sin_b)

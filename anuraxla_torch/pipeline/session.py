@@ -4,8 +4,9 @@ of ``anuraxla/pipeline/session.py``'s ``EncoderSession``.
 The served path: decoded rows (optionally already in the mel kernel's
 pre-padded layout) go to the device through a pinned host buffer with a
 non-blocking copy; the device computes the fused RMS scale over the valid
-slice, the log-mel frontend (``backend="cuda"``: the Hopper mel kernel), and
-the encoder's ``mu``. ``encode_paths`` keeps two batches in flight: it
+slice, the log-mel frontend (``backend="cuda"`` / ``"cuda-bf16"``: a Hopper
+mel kernel; ``parity=False``: the crop-first fast frontend), and the
+encoder's ``mu``. ``encode_paths`` keeps two batches in flight: it
 fetches batch i−1's latents only after batch i is dispatched, while the next
 batch decodes on a prefetch thread.
 
@@ -13,11 +14,17 @@ Weights: ``load(params=state_dict)`` (e.g. from
 ``models.convert.encoder_state_from_jax``) or, with no params, a seeded
 random init (``init_seed``). The encoder artifact loader (flax msgpack) is
 not ported yet.
+
+``session_fingerprint`` is the latent-cache key: everything that changes
+latents, plus a framework tag so that no key of this package equals one of
+the JAX package (both name a ``matmul`` backend).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -27,7 +34,7 @@ import torch
 from anuraxla_torch import resolve_device
 from anuraxla_torch.constants import MelConfig
 from anuraxla_torch.models.vae import ConvVAEEncoder, VAEConfig, init_encoder_params
-from anuraxla_torch.ops.frontend import log_mel_batch, mel_to_encoder_input, rms_scale_batch
+from anuraxla_torch.ops.frontend import BACKENDS, log_mel_batch, mel_to_encoder_input, resolved_backend, rms_scale_batch
 from anuraxla_torch.ops.mel_kernel import kernel_takes, phase_padded_layout
 from anuraxla_torch.pipeline.dataset import iter_batches
 
@@ -38,10 +45,8 @@ class EncoderSession:
 
     mel: MelConfig
     batch_size: int = 64
-    # only the parity frontend is ported: False (the fast tier) is refused
-    # at load() until that tier lands
-    parity: bool = True
-    backend: str = "cuda"  # "cuda" | "matmul"
+    parity: bool = True  # False: the crop-first fast frontend
+    backend: str = "cuda"  # "cuda" | "cuda-bf16" | "matmul" | "matmul-bf16"
     encoder_cfg: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     # trunk compute dtype ("float32" | "bfloat16"); params and heads stay f32
     encoder_dtype: str = "float32"
@@ -61,8 +66,6 @@ class EncoderSession:
 
     def load(self, params: Optional[dict] = None) -> "EncoderSession":
         self._dev = resolve_device(self.device)
-        if not self.parity:
-            raise NotImplementedError("the fast frontend (parity=False) is not ported yet")
         if self.encoder_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"encoder_dtype must be float32 or bfloat16, got {self.encoder_dtype!r}")
         cfg = dataclasses.replace(self.encoder_cfg, dtype=self.encoder_dtype)
@@ -76,6 +79,7 @@ class EncoderSession:
         enc = ConvVAEEncoder(cfg)
         enc.load_state_dict(params)
         self._enc = enc.eval().to(self._dev)
+        self._enc_cfg = cfg
         self.latent_dim = cfg.latent_dim
         self._pinned = [None, None]
         self._slot = 0
@@ -83,20 +87,43 @@ class EncoderSession:
         return self
 
     def _setup_layout(self) -> None:
+        """Validate the frontend settings and derive the decode layout."""
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
+        self._fingerprint = None  # computed lazily (hashes the weights once)
         self._layout = None  # (row_len, col_offset)
         if self.pre_padded_host:
-            if not self.parity or self.backend != "cuda" or not kernel_takes(self.mel):
+            if (not self.parity or self.backend != "cuda" or self.mel.hop_length % 128
+                    or not kernel_takes(self.mel, "ct")):
                 raise ValueError(
-                    "pre_padded_host requires parity=True, backend='cuda' and a "
-                    f"config the mel kernel takes (hop % 128 == 0); got parity="
-                    f"{self.parity}, backend={self.backend!r}, hop={self.mel.hop_length}"
+                    "pre_padded_host requires parity=True, backend='cuda' and "
+                    "hop_length % 128 == 0 (the ct kernel's pre-padded layout); got "
+                    f"parity={self.parity}, backend={self.backend!r}, hop={self.mel.hop_length}"
                 )
             self._layout = phase_padded_layout(self.mel, self.mel.total_frames)
 
-    def reconfigure(self, *, duration: Optional[float] = None) -> "EncoderSession":
-        """Retarget the clip duration (config.json's chunk_seconds)."""
+    def reconfigure(
+        self,
+        *,
+        duration: Optional[float] = None,
+        parity: Optional[bool] = None,
+        backend: Optional[str] = None,
+    ) -> "EncoderSession":
+        """Change frontend parameters (config.json's chunk_seconds, the
+        frontend mode, the backend) on a loaded session: the layout is derived
+        and validated again, as ``load()`` does, and the fingerprint is reset,
+        only when something changed. The weights stay loaded."""
+        changed = False
         if duration is not None and abs(duration - self.mel.duration) > 1e-9:
             self.mel = self.mel.replace(duration=duration)
+            changed = True
+        if parity is not None and parity != self.parity:
+            self.parity = parity
+            changed = True
+        if backend is not None and backend != self.backend:
+            self.backend = backend
+            changed = True
+        if changed:
             self._setup_layout()
         return self
 
@@ -198,3 +225,52 @@ class EncoderSession:
             z, p0, nv = pending
             Z[p0 : p0 + nv] = z.cpu().numpy()[:nv]
         return Z, ok, errors
+
+
+def cache_path_for(cache_dir: Path, chunks_dir: Path, species: str, tag: str = "") -> Path:
+    """``cache_npz/Z_<rootname>_<species><tag>.npz``, the reference's archive
+    name; ``tag`` gives variant encodes their own file."""
+    return Path(cache_dir) / f"Z_{Path(chunks_dir).name}_{species}{tag}.npz"
+
+
+def mel_fingerprint(mel: MelConfig) -> str:
+    return (
+        f"sr{mel.sr}_d{mel.duration}_m{mel.n_mels}_f{mel.fmin}-{mel.fmax}"
+        f"_h{mel.hop_length}_n{mel.n_fft}_t{mel.target_frames}"
+    )
+
+
+FRAMEWORK_TAG = "torch"
+
+
+def session_fingerprint(session: EncoderSession) -> str:
+    """Cache key of a loaded session, covering everything that changes
+    latents: mel parameters, frontend mode, the EFFECTIVE backend
+    (``resolved_backend``: a kernel backend on a config no kernel takes runs
+    matmul math), the encoder weights (digest of the ``state_dict`` in sorted
+    key order), the architecture (hash of the config, its compute dtype
+    included), int16 transfer, device-side normalization and noise injection.
+    The backend is prefixed with :data:`FRAMEWORK_TAG`, so no key equals one of
+    the JAX package, whose ``matmul`` backends share their names with this
+    one's while its latents differ in the last bits."""
+    if session._fingerprint:
+        return session._fingerprint
+    h = hashlib.blake2b(digest_size=10)
+    state = session._enc.state_dict()
+    for key in sorted(state):
+        h.update(key.encode())
+        h.update(state[key].detach().cpu().contiguous().numpy().tobytes())
+    d = dataclasses.asdict(session._enc_cfg)
+    d["dtype"] = str(d["dtype"]).replace("torch.", "")
+    d = {k: (list(v) if isinstance(v, tuple) else v) for k, v in d.items()}
+    arch = hashlib.blake2b(json.dumps(d, sort_keys=True).encode(), digest_size=6).hexdigest()
+    fp = (
+        f"{mel_fingerprint(session.mel)}_p{int(session.parity)}"
+        f"_{FRAMEWORK_TAG}-{resolved_backend(session.mel, session.backend)}"
+        f"_e{h.hexdigest()}_a{arch}"
+        + ("_i16" if session.transfer_int16 else "")
+        + ("_ndev" if session.normalize_on_device else "")
+        + (f"_nz{session.add_noise_db:g}s{session.noise_seed}" if session.add_noise_db is not None else "")
+    )
+    session._fingerprint = fp
+    return fp

@@ -127,7 +127,7 @@ def test_mel_power_plain_vs_pallas(name, pre_padded):
     ))
     got = tk.mel_power(torch.from_numpy(x), tc, num_frames=T,
                        rms_scale=torch.from_numpy(s), pre_padded=pre_padded)
-    assert tk.mel_power.launches == 0  # the CPU path never counts a launch
+    assert not any(tk.mel_power.launches.values())  # the CPU path never counts a launch
     assert got.shape == ref.shape == (3, T, tc.n_mels)
     # each row against its own max, so the silent row (raw passthrough, power
     # ~1e-12 of the others') is held to the same bound
@@ -198,14 +198,17 @@ def test_stft_power_vs_jax():
 def test_backend_gate_and_names():
     assert tfe.resolved_backend(MelConfig(), "cuda") == "cuda"
     assert tfe.resolved_backend(MelConfig(), "matmul") == "matmul"
-    # configs the kernel does not take resolve to matmul (config gate only)
-    for hop in (160, 441):
+    # only configs outside both kernel families resolve to the matmul
+    # backends (config gate only); hop 160 is the ct family's, 240 the dense
+    for hop in (160, 240):
+        assert tfe.resolved_backend(MelConfig(hop_length=hop), "cuda") == "cuda"
+    for hop in (441, 40):
         assert tfe.resolved_backend(MelConfig(hop_length=hop), "cuda") == "matmul"
-    # the JAX backend names are not the port's: no cache key can collide
+    # the JAX kernel backends' names are not the port's
     for name in ("pallas", "pallas-bf16", "fft", "ct"):
         with pytest.raises(ValueError):
             tfe.resolved_backend(MelConfig(), name)
     with pytest.raises(NotImplementedError):
-        tk.mel_power(torch.zeros(1, 16000), MelConfig(hop_length=160), num_frames=10)
+        tk.mel_power(torch.zeros(1, 16000), MelConfig(hop_length=441), num_frames=10)
     with pytest.raises(ValueError):  # wrong pre-padded length
         tk.mel_power(torch.zeros(1, 1000), MelConfig(), num_frames=626, pre_padded=True)

@@ -187,11 +187,6 @@ def test_entry_points_need_a_card_or_cpu(tmp_path):
         t_cli.main(["--wav", str(wav), "--config", str(tmp_path / "config.json")])
 
 
-def test_fast_tier_is_refused_at_load():
-    with pytest.raises(NotImplementedError, match="parity=False"):
-        EncoderSession(mel=DEFAULT_MEL, device="cpu", parity=False).load()
-
-
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
