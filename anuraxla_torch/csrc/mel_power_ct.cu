@@ -68,17 +68,31 @@
 // complex + 2 real 128x128 outer products, 9 merged-filterbank products,
 // the inner stage; ~0.81 TFLOP, ~12 ms at the FP32 rate), so its speed is
 // the FFMA issue rate of the outer GEMMs and it sits far from the bound.
+//
+// Ablations (template ABLATE; the reference's `ablate=`, :402-509 and
+// :602-613, :664-670, :709-721). `ncu` cannot run where this card is, so
+// the cost of a class of work is measured as the time that goes when the
+// class is dropped: AB_WINDOW (no Hann multiply), AB_INNER (the inner stage
+// hands block r as a_re, block (r+1) % R as a_im), AB_POWER (p = x_re + x_im:
+// both products stay live, or the compiler would remove the imaginary half
+// of the outer stage with the squares), AB_FB (the first n_mels power
+// columns stand for the filterbank product). The output is wrong by design.
+// An ablated instantiation is compiled only with -DMEL_POWER_CT_ABLATE=<mask>,
+// into a library of its own that holds that mask alone (both modes): the
+// serving library holds ABLATE = 0 alone, and a profiling run builds only the
+// masks it asks for.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mel_ct_inner.cuh"
 #include "mel_stage.cuh"
 
 namespace {
 
 constexpr int TF = 32;          // frames per block
 constexpr int NTHREADS = 512;   // 16 warps
-constexpr int NB = 128;         // CT block length (n2 and q range)
+constexpr int NB = CT_NB;       // CT block length (n2 and q range)
 constexpr int PLANE = TF * NB;  // floats per A plane, layout [t][n2]
 constexpr int MAX_MJ = 4;       // n_mels <= 128
 
@@ -98,7 +112,7 @@ struct Params {
 };
 
 // Outer stage for one r: X = A_r @ (C_r - i S_r), power to `ps` [t][q].
-template <bool HAS_IM, bool BF16>
+template <bool HAS_IM, bool BF16, int ABLATE>
 __device__ __forceinline__ void outer_power(const Params& p, int r,
                                             const float* __restrict__ are,
                                             const float* __restrict__ aim,
@@ -137,23 +151,38 @@ __device__ __forceinline__ void outer_power(const Params& p, int r,
         }
       }
   }
+  // AB_FB hands the power on as it is (the reference rounds only an operand
+  // of the filterbank product)
+  constexpr bool RND = BF16 && !(ABLATE & AB_FB);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    float4 pw;
-    pw.x = rnd<BF16>(xr[i][0] * xr[i][0] + xi[i][0] * xi[i][0]);
-    pw.y = rnd<BF16>(xr[i][1] * xr[i][1] + xi[i][1] * xi[i][1]);
-    pw.z = rnd<BF16>(xr[i][2] * xr[i][2] + xi[i][2] * xi[i][2]);
-    pw.w = rnd<BF16>(xr[i][3] * xr[i][3] + xi[i][3] * xi[i][3]);
-    *reinterpret_cast<float4*>(ps + (t0 + i) * NB + q0) = pw;
+    float pw[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      pw[j] = rnd<RND>((ABLATE & AB_POWER) ? xr[i][j] + xi[i][j]
+                                           : xr[i][j] * xr[i][j] + xi[i][j] * xi[i][j]);
+    *reinterpret_cast<float4*>(ps + (t0 + i) * NB + q0) = make_float4(pw[0], pw[1], pw[2], pw[3]);
   }
 }
 
 // Merged-filterbank product for one r: acc[t][m] += sum_q ps[t][q] FBM_r[q][m].
+template <int ABLATE>
 __device__ __forceinline__ void fb_accumulate(const Params& p, int r,
                                               const float* __restrict__ ps,
                                               float acc[2][MAX_MJ]) {
   const int lane = threadIdx.x & 31;
   const int t0 = (threadIdx.x >> 5) * 2;
+  if (ABLATE & AB_FB) {
+#pragma unroll
+    for (int j = 0; j < MAX_MJ; ++j) {
+      const int m = lane + 32 * j;
+      if (m < p.n_mels) {
+        acc[0][j] += ps[t0 * NB + m];
+        acc[1][j] += ps[(t0 + 1) * NB + m];
+      }
+    }
+    return;
+  }
   const float* fb = p.FBM + (size_t)r * NB * p.n_mels;
   for (int q = 0; q < NB; ++q) {
     const float p0 = ps[t0 * NB + q];
@@ -170,20 +199,31 @@ __device__ __forceinline__ void fb_accumulate(const Params& p, int r,
   }
 }
 
+// Where the inner stage leaves plane k of its group at frame t: [k][t][n2],
+// rounded in the bf16 mode.
+template <bool BF16>
+struct PlaneStore {
+  float* planes;
+  int n2;
+  __device__ __forceinline__ void operator()(int k, int t, float v) const {
+    planes[k * PLANE + t * NB + n2] = rnd<BF16>(v);
+  }
+};
+
 // One r through outer stage, power and filterbank, with the block barriers
 // that separate the A planes, the power tile and the next writer.
-template <bool BF16>
+template <bool BF16, int ABLATE>
 __device__ __forceinline__ void do_r(const Params& p, int r, const float* are,
                                      const float* aim, float* ps,
                                      float acc[2][MAX_MJ]) {
-  if (aim != nullptr) outer_power<true, BF16>(p, r, are, aim, ps);
-  else outer_power<false, BF16>(p, r, are, nullptr, ps);
+  if (aim != nullptr) outer_power<true, BF16, ABLATE>(p, r, are, aim, ps);
+  else outer_power<false, BF16, ABLATE>(p, r, are, nullptr, ps);
   __syncthreads();
-  fb_accumulate(p, r, ps, acc);
+  fb_accumulate<ABLATE>(p, r, ps, acc);
   __syncthreads();
 }
 
-template <bool BF16>
+template <bool BF16, int ABLATE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 mel_power_ct_kernel(Params p) {
   extern __shared__ float smem[];
@@ -212,6 +252,7 @@ mel_power_ct_kernel(Params p) {
   const int n2 = threadIdx.x % NB;
   const int tsub = threadIdx.x / NB;  // 4 frame lanes; frame t = tsub + 4i
   const int R = p.R;
+  const PlaneStore<BF16> store{planes, n2};
 
   if (R == 16) {
     float w[16];
@@ -220,79 +261,24 @@ mel_power_ct_kernel(Params p) {
     // groups by r0 = r mod 4: {0, 4, 8}, {1, 5}, {2, 6}, {3, 7}
 #pragma unroll
     for (int r0 = 0; r0 < 4; ++r0) {
-      float tc[4], ts[4];  // twiddle W16^(n0*r0)
-#pragma unroll
-      for (int n0 = 0; n0 < 4; ++n0) {
-        tc[n0] = __ldg(p.wr + 2 * (n0 * r0));
-        ts[n0] = __ldg(p.wr + 2 * (n0 * r0) + 1);
-      }
-      for (int i = 0; i < TF / 4; ++i) {
-        const int t = tsub + 4 * i;
-        const float* x = aud + t * p.hop + n2;
-        float zr[4], zi[4];
-#pragma unroll
-        for (int n0 = 0; n0 < 4; ++n0) {
-          const float x0 = w[n0] * x[n0 * NB];
-          const float x1 = w[4 + n0] * x[(4 + n0) * NB];
-          const float x2 = w[8 + n0] * x[(8 + n0) * NB];
-          const float x3 = w[12 + n0] * x[(12 + n0) * NB];
-          const float e0 = x0 + x2, e1 = x1 + x3, d0 = x0 - x2, d1 = x1 - x3;
-          // 4-point DFT over n1' at r0 (W4 = 1, -i, -1, i)
-          float gr, gi;
-          if (r0 == 0) { gr = e0 + e1; gi = 0.f; }
-          else if (r0 == 1) { gr = d0; gi = -d1; }
-          else if (r0 == 2) { gr = e0 - e1; gi = 0.f; }
-          else { gr = d0; gi = d1; }
-          // times W16^(n0 r0) = c - i s
-          zr[n0] = gr * tc[n0] + gi * ts[n0];
-          zi[n0] = gi * tc[n0] - gr * ts[n0];
-        }
-        const float u0r = zr[0] + zr[2], u0i = zi[0] + zi[2];
-        const float u1r = zr[1] + zr[3], u1i = zi[1] + zi[3];
-        const float v0r = zr[0] - zr[2], v0i = zi[0] - zi[2];
-        const float v1r = zr[1] - zr[3], v1i = zi[1] - zi[3];
-        const int o = t * NB + n2;
-        if (r0 == 0) {
-          planes[0 * PLANE + o] = rnd<BF16>(u0r + u1r);  // r = 0 (real)
-          planes[1 * PLANE + o] = rnd<BF16>(v0r + v1i);  // r = 4
-          planes[2 * PLANE + o] = rnd<BF16>(v0i - v1r);
-          planes[3 * PLANE + o] = rnd<BF16>(u0r - u1r);  // r = 8 (real)
-        } else {
-          planes[0 * PLANE + o] = rnd<BF16>(u0r + u1r);  // r = r0
-          planes[1 * PLANE + o] = rnd<BF16>(u0i + u1i);
-          planes[2 * PLANE + o] = rnd<BF16>(v0r + v1i);  // r = r0 + 4
-          planes[3 * PLANE + o] = rnd<BF16>(v0i - v1r);
-        }
-      }
+      inner_group16<ABLATE, TF>(r0, aud, p.hop, w, p.wr, n2, tsub, store);
       __syncthreads();
       if (r0 == 0) {
-        do_r<BF16>(p, 0, planes, nullptr, ps, acc);
-        do_r<BF16>(p, 4, planes + PLANE, planes + 2 * PLANE, ps, acc);
-        do_r<BF16>(p, 8, planes + 3 * PLANE, nullptr, ps, acc);
+        do_r<BF16, ABLATE>(p, 0, planes, nullptr, ps, acc);
+        do_r<BF16, ABLATE>(p, 4, planes + PLANE, planes + 2 * PLANE, ps, acc);
+        do_r<BF16, ABLATE>(p, 8, planes + 3 * PLANE, nullptr, ps, acc);
       } else {
-        do_r<BF16>(p, r0, planes, planes + PLANE, ps, acc);
-        do_r<BF16>(p, r0 + 4, planes + 2 * PLANE, planes + 3 * PLANE, ps, acc);
+        do_r<BF16, ABLATE>(p, r0, planes, planes + PLANE, ps, acc);
+        do_r<BF16, ABLATE>(p, r0 + 4, planes + 2 * PLANE, planes + 3 * PLANE, ps, acc);
       }
     }
   } else {
     // literal-weight R-point DFT, one r at a time
     for (int r = 0; r <= R / 2; ++r) {
       const bool has_im = !(r == 0 || 2 * r == R);
-      for (int i = 0; i < TF / 4; ++i) {
-        const int t = tsub + 4 * i;
-        const float* x = aud + t * p.hop + n2;
-        float ar = 0.f, ai = 0.f;
-        for (int n1 = 0; n1 < R; ++n1) {
-          const int j = (n1 * r) % R;
-          const float v = __ldg(p.win + n1 * NB + n2) * x[n1 * NB];
-          ar = fmaf(__ldg(p.wr + 2 * j), v, ar);
-          ai = fmaf(-__ldg(p.wr + 2 * j + 1), v, ai);
-        }
-        planes[t * NB + n2] = rnd<BF16>(ar);
-        planes[PLANE + t * NB + n2] = rnd<BF16>(ai);
-      }
+      inner_generic<ABLATE, TF>(aud, p.hop, p.win, p.wr, R, r, n2, tsub, store);
       __syncthreads();
-      do_r<BF16>(p, r, planes, has_im ? planes + PLANE : nullptr, ps, acc);
+      do_r<BF16, ABLATE>(p, r, planes, has_im ? planes + PLANE : nullptr, ps, acc);
     }
   }
 
@@ -312,6 +298,18 @@ mel_power_ct_kernel(Params p) {
   }
 }
 
+using Kernel = void (*)(Params);
+
+#ifndef MEL_POWER_CT_ABLATE
+#define MEL_POWER_CT_ABLATE 0
+#endif
+
+// The instantiation for an ablation mask; nullptr unless it is this library's.
+template <bool BF16>
+Kernel pick_kernel(int ablate) {
+  return ablate == MEL_POWER_CT_ABLATE ? mel_power_ct_kernel<BF16, MEL_POWER_CT_ABLATE> : nullptr;
+}
+
 }  // namespace
 
 extern "C" {
@@ -324,11 +322,13 @@ long long mel_power_ct_smem_bytes(int n_fft, int hop) {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // `bf16` != 0 selects the bf16 mode; C/S/FBM must then hold bf16 values.
+// `ablate` is a mask of AB_* classes (profiling only); it must be the mask
+// the library was built for (-DMEL_POWER_CT_ABLATE=<mask>, 0 without).
 int mel_power_ct_launch(const float* y, long long L, const float* scale,
                         const float* C, const float* S, const float* FBM,
                         const float* win, const float* wr, float* out, int B,
                         int T, int frame0, int pad_l, int n_fft, int hop,
-                        int n_mels, int bf16, void* stream) {
+                        int n_mels, int bf16, int ablate, void* stream) {
   if (n_fft % NB != 0 || n_fft < 2 * NB || n_mels < 1 || n_mels > 32 * MAX_MJ ||
       B < 1 || T < 1 || B > 65535 || hop < 1 || frame0 < 0 || pad_l < 0)
     return (int)cudaErrorInvalidValue;
@@ -337,7 +337,8 @@ int mel_power_ct_launch(const float* y, long long L, const float* scale,
   p.wr = wr; p.out = out; p.L = L; p.T = T; p.n_fft = n_fft; p.hop = hop;
   p.n_mels = n_mels; p.R = n_fft / NB; p.frame0 = frame0; p.pad_l = pad_l;
   const long long smem = mel_power_ct_smem_bytes(n_fft, hop);
-  auto kernel = bf16 ? mel_power_ct_kernel<true> : mel_power_ct_kernel<false>;
+  Kernel kernel = bf16 ? pick_kernel<true>(ablate) : pick_kernel<false>(ablate);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

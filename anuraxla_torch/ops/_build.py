@@ -3,8 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``anuraxla_torch/_build/lib<name>-<hash>.so``,
 keyed by the content of the source and of the ``*.cuh`` headers beside it)
-and loaded with ``ctypes`` at first use; ``build`` compiles several sources
-at once, one ``nvcc`` each. Only
+and loaded with ``ctypes`` at first use; ``build`` compiles several libraries
+at once, one ``nvcc`` each. ``VARIANTS`` names libraries built from another
+library's source with extra ``-D`` flags: the ablated instantiations of the
+Cooley–Tukey kernel, one small library a mask, kept out of the serving library
+and built only when a profiling run asks for that mask. Only
 the repository's sources are read. No PyTorch headers are included, so a
 build takes seconds. ``ptxas``'s report (registers, spills) is kept beside the
 library as ``lib<name>-<hash>.log``. A missing ``nvcc`` or a failed build
@@ -29,6 +32,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# library -> (source it is built from, extra nvcc flags)
+VARIANTS = {f"mel_power_ct_ablate{mask}": ("mel_power_ct", (f"-DMEL_POWER_CT_ABLATE={mask}",))
+            for mask in range(1, 16)}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -42,18 +49,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
 
 
+def source_of(name: str) -> str:
+    """The source (and the prefix of the C symbols) a library is built from."""
+    return VARIANTS.get(name, (name,))[0]
+
+
+def _flags(name: str) -> list[str]:
+    return [*NVCC_FLAGS, *VARIANTS.get(name, (name, ()))[1]]
+
+
 def lib_path(name: str) -> Path:
     """The library's path, keyed by the content of its source, of the headers
     beside it and of the compiler flags."""
-    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha1((CSRC / f"{source_of(name)}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def sources() -> list[str]:
-    """The names of every kernel source under ``csrc/``."""
+    """The names of every kernel source under ``csrc/`` (each is a library;
+    ``VARIANTS`` names the others)."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
@@ -68,7 +85,7 @@ def build(names: Iterable[str]) -> None:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        proc = subprocess.Popen([nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{source_of(name)}.cu")],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, out, tmp, proc))
     failed = []
@@ -84,7 +101,7 @@ def build(names: Iterable[str]) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if it is missing."""
+    """The loaded library ``name``, building it if it is missing."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])

@@ -11,12 +11,18 @@ three TPU kernels and ``mel_power_pallas``, the function that selects one.
   ``ct_tables_bf16``: the bf16 ``hi`` halves the bf16 mode multiplies by,
   bitwise the reference's. ``dense_tables``: the windowed DFT bases and the
   filterbank of the dense kernel, frequency axis zero-padded to 128s.
-- ``mel_power_ct_plain`` / ``mel_power_dense_plain``: the plain PyTorch
-  versions of the kernels' math, exact and bf16.
+- ``ct_tables_folded_cat``: the concatenated-operand tables of the
+  reference's ``_ct_tables_folded_cat`` (``fused_dots=True``), bitwise, and
+  ``ct_fragment_tables``: the same values in the order the tensor cores'
+  ``mma`` fragments read them.
+- ``mel_power_ct_plain`` / ``mel_power_ct_fused_plain`` /
+  ``mel_power_dense_plain``: the plain PyTorch versions of the kernels' math,
+  exact and bf16.
 - ``mel_power``: the wrapper. On a CUDA tensor it launches a hand-written
-  Hopper kernel (``csrc/mel_power_ct.cu`` or ``csrc/mel_power_dense.cu``) or
-  raises; it takes a plain version only for a tensor on the CPU.
-  ``mel_power.launches`` counts the kernel launches by kernel and mode.
+  Hopper kernel (``csrc/mel_power_ct.cu``, ``csrc/mel_power_ct_split.cu`` or
+  ``csrc/mel_power_dense.cu``) or raises; it takes a plain version only for a
+  tensor on the CPU. ``mel_power.launches`` counts the kernel launches by
+  kernel and mode.
 
 Which kernel runs (``kernel_name``):
 
@@ -28,11 +34,22 @@ name                   algorithm  exact  config
 ``mel_power_ct_bf16``  ct         no     n_fft % 128 == 0, hop % 32 == 0
 ``mel_power_dense``    dense      yes    hop % 16 == 0
 ``mel_power_dense_bf16`` dense    no     hop % 16 == 0
+``mel_power_ct_fused`` ct         yes    ``fused_dots=True``, hop % 32 == 0
+``mel_power_ct_fused_bf16`` ct    no     ``fused_dots=True``, hop % 32 == 0
 =====================  =========  =====  ==================================
 
 The first three are one source (``mel_power_ct.cu``): on this card a frame
 is read at any sample offset, so the reference's separate kernel for
-hop % 128 != 0 needs no code of its own.
+hop % 128 != 0 needs no code of its own. ``fused_dots=True`` is the
+kernel-study variant (``csrc/mel_power_ct_split.cu``): the outer stage as one
+deep product per r over bf16 hi/lo split operands, on the tensor cores.
+``ablate=`` (profiling only, wrong output by design) drops one class of work
+from the Cooley–Tukey kernel at hop % 128 == 0; its launches count under the
+kernel's own name.
+
+The reference's ``tile_t``, ``row_block``, ``batch_rows``, ``assembly`` and
+``interleave`` are blocking and scheduling knobs of its compiler with no
+counterpart here, where one source serves every hop family.
 """
 
 from __future__ import annotations
@@ -119,8 +136,10 @@ def kernel_takes(cfg: MelConfig, algorithm: str = "auto") -> bool:
     return True
 
 
-def kernel_name(cfg: MelConfig, algorithm: str, exact: bool) -> str:
+def kernel_name(cfg: MelConfig, algorithm: str, exact: bool, fused_dots: bool = False) -> str:
     """The launch counter's key for a resolved algorithm (module docstring)."""
+    if fused_dots:
+        return "mel_power_ct_fused" if exact else "mel_power_ct_fused_bf16"
     if algorithm == "dense":
         return "mel_power_dense" if exact else "mel_power_dense_bf16"
     if not exact:
@@ -187,6 +206,90 @@ def ct_tables_bf16(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float):
     return tuple(torch.from_numpy(a).to(torch.bfloat16) for a in (C, S, FBM))
 
 
+def _split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x -> (hi, lo) holding bf16 values in x's dtype, hi + lo ~ x: hi = bf16(x),
+    lo = bf16(x - hi) (the reference's ``_split_bf16``)."""
+    hi = round_bf16(x.float()).to(x.dtype)
+    return hi, round_bf16((x - hi).float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def ct_tables_folded_cat(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, exact: bool):
+    """(win, rhs_real, rhs_cplx, fbcat): the concatenated-operand tables of
+    ``fused_dots=True`` — ``win`` [n_fft] f32 numpy, the rest bf16 tensors,
+    value for value the reference's ``_ct_tables_folded_cat``.
+
+    Each r is ONE product ``[ar_hi ar_hi ar_lo (ai_hi ai_hi ai_lo)] @ RHS_r
+    -> x_re | x_im`` with the split structure and the sign of x_im folded
+    into RHS_r: row blocks (C_hi|-S_hi; C_lo|-S_lo; C_hi|-S_hi) for the
+    ``ar`` columns and (S_hi|C_hi; S_lo|C_lo; S_hi|C_hi) for ``ai``; the
+    filterbank likewise, ``[p_hi p_hi p_lo] @ (F_hi; F_lo; F_hi)``. With
+    K1 = 384 (exact) or 128 (bf16 mode: the hi blocks alone):
+    rhs_real [n_real*K1, 256] holds r = 0 and (R even) r = R/2 in ascending
+    order, rhs_cplx [n_cplx*2*K1, 256] the other r <= R/2 (empty for R = 2),
+    fbcat [(R//2+1)*K1, n_mels] every r."""
+    R = n_fft // 128
+    C, S, FBM, win = (torch.from_numpy(a) for a in ct_tables_folded(sr, n_fft, n_mels, fmin, fmax))
+    (Chi, Clo), (Shi, Slo), (Fhi, Flo) = (_split_bf16(t) for t in (C, S, FBM))
+    parts = (0, 1, 0) if exact else (0,)  # (hi, lo, hi) against an [a_hi a_hi a_lo] operand
+    rhs_real, rhs_cplx, fbcat = [], [], []
+    for r in range(R // 2 + 1):
+        sl = slice(r * 128, (r + 1) * 128)
+        ar_rows = torch.cat([torch.cat([(Chi, Clo)[i][sl], -(Shi, Slo)[i][sl]], 1) for i in parts])
+        ai_rows = torch.cat([torch.cat([(Shi, Slo)[i][sl], (Chi, Clo)[i][sl]], 1) for i in parts])
+        fbcat.append(torch.cat([(Fhi, Flo)[i][sl] for i in parts]))
+        if r == 0 or 2 * r == R:
+            rhs_real.append(ar_rows)
+        else:
+            rhs_cplx.append(torch.cat([ar_rows, ai_rows]))
+    rhs_cplx = torch.cat(rhs_cplx) if rhs_cplx else torch.zeros((0, 256))
+    return (win.numpy(),) + tuple(t.to(torch.bfloat16) for t in (torch.cat(rhs_real), rhs_cplx, torch.cat(fbcat)))
+
+
+def _mma_b_fragments(B: torch.Tensor, tile_cols) -> torch.Tensor:
+    """A bf16 [K, N] right-hand matrix in the order the B fragments of
+    ``mma.sync.m16n8k16`` read it: int32 [K/16, len(tile_cols), 32, 2], where
+    tile j covers the 8 columns from ``tile_cols[j]`` and lane l = 4g + c holds
+    column g, rows 16k + 2c, +1 (word 0) and 16k + 2c + 8, +9 (word 1), the
+    lower row in the lower half of the word. One 8- or 16-byte load a lane
+    then feeds a whole ``mma``."""
+    K, _ = B.shape
+    bits = B.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+    ks = torch.arange(K // 16)[:, None, None, None]
+    col = torch.as_tensor(list(tile_cols))[None, :, None, None] + (torch.arange(32) // 4)[None, None, :, None]
+    row = 16 * ks + 2 * (torch.arange(32) % 4)[None, None, :, None] + 8 * torch.arange(2)[None, None, None, :]
+    lo, hi = bits[row, col], bits[row + 1, col]
+    return (lo | (hi << 16)).to(torch.int32).contiguous()
+
+
+@functools.lru_cache(maxsize=8)
+def ct_fragment_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, exact: bool):
+    """(rhs_frag, fb_frag) int32 tensors: ``ct_tables_folded_cat`` as
+    ``csrc/mel_power_ct_split.cu`` reads it. ``rhs_frag`` [sum_r K_r/16, 16, 32, 4]
+    holds the RHS blocks in r order (real or complex as r needs); warp w's
+    four words a lane are the fragments of the x_re columns 8w.. and of the
+    x_im columns 128 + 8w... ``fb_frag`` [n_half*K1/16, ceil(n_mels/8), 32, 2]
+    holds the filterbank blocks, mel columns zero-padded to a multiple of 8."""
+    R = n_fft // 128
+    _, rhs_real, rhs_cplx, fbcat = ct_tables_folded_cat(sr, n_fft, n_mels, fmin, fmax, exact)
+    K1 = 384 if exact else 128
+    tiles = [c for w in range(16) for c in (8 * w, 128 + 8 * w)]
+    frags, i_real, i_cplx = [], 0, 0
+    for r in range(R // 2 + 1):
+        if r == 0 or 2 * r == R:
+            block = rhs_real[i_real * K1 : (i_real + 1) * K1]
+            i_real += 1
+        else:
+            block = rhs_cplx[i_cplx * 2 * K1 : (i_cplx + 1) * 2 * K1]
+            i_cplx += 1
+        # [k, (warp, re|im), lane, word] -> [k, warp, lane, (re|im, word)]
+        frag = _mma_b_fragments(block, tiles).reshape(-1, 16, 2, 32, 2)
+        frags.append(frag.permute(0, 1, 3, 2, 4).reshape(-1, 16, 32, 4))
+    n_tiles = -(-n_mels // 8)
+    fb = F.pad(fbcat.float(), (0, 8 * n_tiles - n_mels)).to(torch.bfloat16)
+    return torch.cat(frags).contiguous(), _mma_b_fragments(fb, range(0, 8 * n_tiles, 8))
+
+
 @functools.lru_cache(maxsize=8)
 def dense_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float):
     """(C, S, FB) of the dense kernel as float32 numpy arrays: the windowed
@@ -204,8 +307,11 @@ def dense_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float):
 
 
 def _tables(cfg: MelConfig, device: torch.device, algorithm: str = "ct", exact: bool = True):
-    """The kernel's tables as f32 tensors on ``device`` — ct: (C, S, FBM, win,
-    wr); dense: (C, S, FB). With ``exact=False`` C/S/FBM/FB hold bf16 values."""
+    """The kernel's tables on ``device`` — ct: (C, S, FBM, win, wr) and dense:
+    (C, S, FB) as f32 tensors, C/S/FBM/FB holding bf16 values with
+    ``exact=False``; "ct_cat": (rhs_real, rhs_cplx, fbcat, win, wr) of
+    ``ct_tables_folded_cat`` as f32 tensors; "ct_frag": (rhs_frag, fb_frag,
+    win, wr), the int32 fragment tables of the split kernel."""
     return _device_tables(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax, str(device), algorithm, exact)
 
 
@@ -217,6 +323,10 @@ def _device_tables(sr, n_fft, n_mels, fmin, fmax, device: str, algorithm: str, e
         if not exact:
             mats = [round_bf16(a) for a in mats]
         rest = []
+    elif algorithm in ("ct_cat", "ct_frag"):
+        win, *cat = ct_tables_folded_cat(*args, exact)
+        mats = [t.float() for t in cat] if algorithm == "ct_cat" else list(ct_fragment_tables(*args, exact))
+        rest = [torch.from_numpy(win), torch.from_numpy(inner_weights(n_fft // 128))]
     else:
         *mats, win = ct_tables_folded(*args)
         mats = [torch.from_numpy(a) for a in mats] if exact else [t.float() for t in ct_tables_bf16(*args)]
@@ -233,6 +343,78 @@ def apply_rms_scale(y: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor
     return torch.where(s > 0, torch.clamp(y * s, -1.0, 1.0), y)
 
 
+ABLATE_CLASSES = ("window", "inner", "power", "fb")  # bit i of the kernel's mask
+
+
+def ablate_mask(ablate: tuple, *, exact: bool = True) -> int:
+    """The kernel's bit mask of an ``ablate`` tuple (profiling only: the
+    output is wrong by design). Wired, with the reference's meaning:
+    'window' (no Hann multiply), 'inner' (the inner stage hands block r as
+    a_re and block (r+1) % R as a_im), 'power' (p = x_re + x_im, both kept
+    live), 'fb' (the first n_mels power columns stand for the filterbank
+    product). Refused, because a silent no-op would fake evidence: 'splits'
+    and 'dots' (this exact mode is one FP32 pass with no split and no extra
+    pass to remove; the reference refuses them too in its bf16 mode) and
+    'shifts' (the misaligned sublane shift it isolates has no counterpart
+    where a frame is read at any sample offset)."""
+    mask = 0
+    for cls in ablate:
+        if cls in ("splits", "dots"):
+            if not exact:
+                raise ValueError(
+                    f"ablate class {cls!r} only exists in an exact (3-pass bf16-split) outer "
+                    "stage; the bf16 kernel has no split/multi-pass arithmetic to remove"
+                )
+            raise ValueError(
+                f"ablate class {cls!r} is not wired: this exact mode is one FP32 pass, "
+                "with no bf16 split and no extra pass to remove"
+            )
+        if cls == "shifts":
+            raise ValueError(
+                "ablate class 'shifts' is not wired: a frame is read at any sample offset "
+                "here, so there is no misaligned shift to remove"
+            )
+        if cls not in ABLATE_CLASSES:
+            raise ValueError(f"unknown ablate class {cls!r}; wired: {ABLATE_CLASSES}")
+        mask |= 1 << ABLATE_CLASSES.index(cls)
+    return mask
+
+
+def ablate_library(mask: int) -> str:
+    """The library that holds the ablated instantiations of ``mask`` (both
+    modes), built from the ct source the first time the mask is asked for."""
+    return f"mel_power_ct_ablate{mask}"
+
+
+def _ct_blocks(y_padded, scale, cfg: MelConfig, num_frames: int, first_frame: int, win: torch.Tensor):
+    """Scaled, clipped and windowed frames as [B, T, R, 128] blocks in
+    ``win``'s dtype."""
+    frames = frames_of_padded(apply_rms_scale(y_padded, scale), n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+                              num_frames=num_frames, first_frame=first_frame)
+    frames = frames.to(win.dtype) * win
+    return frames.reshape(frames.shape[0], num_frames, cfg.n_fft // 128, 128)
+
+
+def _inner_stage(blocks: torch.Tensor, R: int, r: int, ablated: bool = False):
+    """(a_re, a_im) of block r: the literal-weight R-point DFT over the
+    128-sample blocks, zero terms skipped; a_im is None where it is exactly
+    zero (r = 0 and r = R/2). ``ablated``: the reference's trivial provider,
+    distinct operands per r with the same None pattern."""
+    if ablated:
+        return blocks[:, :, r], (None if (r == 0 or 2 * r == R) else blocks[:, :, (r + 1) % R])
+    wr64 = inner_weights(R)
+    a_re = a_im = None
+    for n1 in range(R):
+        j = (n1 * r) % R
+        cw, sw = float(wr64[j, 0]), -float(wr64[j, 1])
+        blk = blocks[:, :, n1]
+        if cw != 0.0:
+            a_re = blk * cw if a_re is None else a_re + blk * cw
+        if sw != 0.0:
+            a_im = blk * sw if a_im is None else a_im + blk * sw
+    return a_re, a_im
+
+
 def mel_power_ct_plain(
     y_padded: torch.Tensor,
     scale: torch.Tensor | None,
@@ -242,6 +424,7 @@ def mel_power_ct_plain(
     first_frame: int = 0,
     exact: bool = True,
     sums: torch.dtype = torch.float32,
+    ablate: tuple = (),
 ) -> torch.Tensor:
     """Plain PyTorch version of the Cooley–Tukey kernel: [B, L] centre-padded
     rows (frame t starts at sample t·hop) -> mel power [B, num_frames,
@@ -253,26 +436,19 @@ def mel_power_ct_plain(
     halves; products and sums stay f32 (the reference's rounding points).
     ``sums=torch.float64`` takes every product and sum after the scale in
     f64, rounding points unchanged: the value that any order of f32 sums
-    approximates, for telling a summation-order difference from a fault."""
+    approximates, for telling a summation-order difference from a fault.
+    ``ablate``: the classes of :func:`ablate_mask`, dropped as the ablated
+    kernel drops them (wrong output by design)."""
     R = cfg.n_fft // 128
+    mask = ablate_mask(ablate, exact=exact)
+    no_window, no_inner, no_power, no_fb = (bool(mask >> i & 1) for i in range(4))
     C, S, FBM, win, _ = (t.to(sums) for t in _tables(cfg, y_padded.device, "ct", exact))
     rnd = (lambda x: x) if exact else (lambda x: round_bf16(x).to(sums))
-    frames = frames_of_padded(apply_rms_scale(y_padded, scale), n_fft=cfg.n_fft, hop_length=cfg.hop_length,
-                              num_frames=num_frames, first_frame=first_frame).to(sums) * win
-    blocks = frames.reshape(frames.shape[0], num_frames, R, 128)
-    wr64 = inner_weights(R)
+    blocks = _ct_blocks(y_padded, scale, cfg, num_frames, first_frame, torch.ones_like(win) if no_window else win)
     acc = None
     with exact_f32():
         for r in range(R // 2 + 1):
-            a_re = a_im = None
-            for n1 in range(R):
-                j = (n1 * r) % R
-                cw, sw = float(wr64[j, 0]), -float(wr64[j, 1])
-                blk = blocks[:, :, n1]
-                if cw != 0.0:
-                    a_re = blk * cw if a_re is None else a_re + blk * cw
-                if sw != 0.0:
-                    a_im = blk * sw if a_im is None else a_im + blk * sw
+            a_re, a_im = _inner_stage(blocks, R, r, no_inner)
             sl = slice(r * 128, (r + 1) * 128)
             a_re = rnd(a_re)
             x_re = a_re @ C[sl]
@@ -281,8 +457,55 @@ def mel_power_ct_plain(
                 a_im = rnd(a_im)
                 x_re = x_re + a_im @ S[sl]
                 x_im = x_im + a_im @ C[sl]
-            p = rnd(x_re * x_re + x_im * x_im)
-            contrib = p @ FBM[sl]
+            p = x_re + x_im if no_power else x_re * x_re + x_im * x_im
+            contrib = p[..., : cfg.n_mels] if no_fb else rnd(p) @ FBM[sl]
+            acc = contrib if acc is None else acc + contrib
+    return acc.float()
+
+
+def mel_power_ct_fused_plain(
+    y_padded: torch.Tensor,
+    scale: torch.Tensor | None,
+    cfg: MelConfig,
+    num_frames: int,
+    *,
+    first_frame: int = 0,
+    exact: bool = True,
+    sums: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain PyTorch version of the concatenated-operand kernel
+    (``fused_dots=True``), after the reference's ``_ct_outer_stage_fused``:
+    the inner planes are split into bf16 hi/lo pairs and each r is one
+    product ``[ar_hi ar_hi ar_lo (ai_hi ai_hi ai_lo)] @ RHS_r -> x_re | x_im``
+    against the tables of :func:`ct_tables_folded_cat`; the f32 power is
+    split again and ``[p_hi p_hi p_lo] @ FBCAT_r`` accumulates the mels.
+    ``exact=False``: ``[bf16(a_re) bf16(a_im)] @ RHS_r`` and ``bf16(p) @ F_hi``.
+    Every operand is a bf16 value held in f32, so every product is exact;
+    the sums are f32, or f64 with ``sums=torch.float64`` (rounding points
+    unchanged)."""
+    R = cfg.n_fft // 128
+    K1 = 384 if exact else 128
+    rhs_real, rhs_cplx, fbcat, win, _ = (t.to(sums) for t in _tables(cfg, y_padded.device, "ct_cat", exact))
+    blocks = _ct_blocks(y_padded, scale, cfg, num_frames, first_frame, win)
+
+    def operand(a):  # [a_hi a_hi a_lo], or bf16(a) in the bf16 mode
+        hi, lo = _split_bf16(a)
+        return [hi, hi, lo] if exact else [hi]
+
+    idx_real = idx_cplx = 0
+    acc = None
+    with exact_f32():
+        for r in range(R // 2 + 1):
+            a_re, a_im = _inner_stage(blocks, R, r)
+            if a_im is None:
+                x = torch.cat(operand(a_re), -1) @ rhs_real[idx_real * K1 : (idx_real + 1) * K1]
+                idx_real += 1
+            else:
+                x = torch.cat(operand(a_re) + operand(a_im), -1) @ rhs_cplx[idx_cplx * 2 * K1 : (idx_cplx + 1) * 2 * K1]
+                idx_cplx += 1
+            x_re, x_im = x[..., :128], x[..., 128:]
+            p = x_re * x_re + x_im * x_im
+            contrib = torch.cat(operand(p), -1) @ fbcat[r * K1 : (r + 1) * K1]
             acc = contrib if acc is None else acc + contrib
     return acc.float()
 
@@ -316,16 +539,19 @@ def _lib(name: str):
     from anuraxla_torch.ops import _build
 
     lib = _build.load(name)
+    source = _build.source_of(name)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    launch = getattr(lib, f"{name}_launch")
-    if name == "mel_power_ct":
-        # y, L, scale, C, S, FBM, win, wr, out, B, T, frame0, pad_l, n_fft, hop, n_mels, bf16, stream
-        launch.argtypes = [vp, i64, vp, vp, vp, vp, vp, vp, vp, *[i32] * 8, vp]
-    else:
+    launch = getattr(lib, f"{source}_launch")
+    launch.argtypes = {
+        # y, L, scale, C, S, FBM, win, wr, out, B, T, frame0, pad_l, n_fft, hop, n_mels, bf16, ablate, stream
+        "mel_power_ct": [vp, i64, vp, vp, vp, vp, vp, vp, vp, *[i32] * 9, vp],
+        # y, L, scale, rhs_frag, fb_frag, win, wr, out, B, T, frame0, pad_l, n_fft, hop, n_mels, bf16, stream
+        "mel_power_ct_split": [vp, i64, vp, vp, vp, vp, vp, vp, *[i32] * 8, vp],
         # y, L, scale, C, S, FB, out, B, T, frame0, pad_l, n_fft, hop, n_mels, n_freq_pad, bf16, stream
-        launch.argtypes = [vp, i64, vp, vp, vp, vp, vp, *[i32] * 9, vp]
+        "mel_power_dense": [vp, i64, vp, vp, vp, vp, vp, *[i32] * 9, vp],
+    }[source]
     launch.restype = i32
-    smem = getattr(lib, f"{name}_smem_bytes")
+    smem = getattr(lib, f"{source}_smem_bytes")
     smem.argtypes = [i32, i32]
     smem.restype = i64
     return lib
@@ -344,6 +570,8 @@ def mel_power(
     pre_padded: bool = False,
     exact: bool = True,
     algorithm: str = "auto",
+    fused_dots: bool = False,
+    ablate: tuple = (),
 ) -> torch.Tensor:
     """[B, L] f32 waveforms -> mel power [B, num_frames, n_mels] f32 of the
     centred frames first_frame .. first_frame + num_frames − 1.
@@ -358,6 +586,12 @@ def mel_power(
     otherwise they are [B, num_samples], centred by n_fft//2.
     ``rms_scale`` [B]: rows with s > 0 are clip(y·s, −1, 1)'d before the
     window, rows with s <= 0 pass through raw.
+    ``fused_dots`` (ct only; the kernel study's variant): the outer stage as
+    one product per r over bf16 hi/lo split operands (``exact``: hi·hi +
+    hi·lo + lo·hi, the reference's 3-pass scheme) on the tensor cores.
+    ``ablate`` (PROFILING ONLY — wrong output): classes of
+    :func:`ablate_mask` dropped from the ct kernel at hop % 128 == 0, for
+    ``probes/kernel_ablation.py``.
 
     A CUDA tensor goes to a Hopper kernel, or this raises; a CPU tensor goes
     to the kernel's plain version.
@@ -367,6 +601,17 @@ def mel_power(
     if num_frames < 1 or first_frame < 0:
         raise ValueError(f"need num_frames >= 1 and first_frame >= 0, got {num_frames}, {first_frame}")
     algorithm = resolve_algorithm(cfg, algorithm)
+    if fused_dots and algorithm != "ct":
+        raise ValueError("fused_dots is a variant of the ct kernel; it needs algorithm 'ct'")
+    mask = 0
+    if ablate:
+        if algorithm != "ct" or cfg.hop_length % 128 != 0:
+            raise ValueError("ablate (profiling only) is wired only into the ct kernel at hop % 128 == 0")
+        if fused_dots:
+            raise ValueError(
+                "ablate is not wired into the fused-dots outer stage — drop fused_dots for profiling runs"
+            )
+        mask = ablate_mask(tuple(ablate), exact=exact)
     pad_l = cfg.n_fft // 2
     if pre_padded:
         if algorithm != "ct" or cfg.hop_length % 128 != 0:
@@ -386,9 +631,13 @@ def mel_power(
         raise ValueError(f"rms_scale must be [{y.shape[0]}], got {tuple(rms_scale.shape)}")
 
     if y.device.type == "cpu":
-        plain = mel_power_ct_plain if algorithm == "ct" else mel_power_dense_plain
-        return plain(F.pad(y, (pad_l, pad_l)), rms_scale, cfg, num_frames,
-                     first_frame=first_frame, exact=exact)
+        rows = F.pad(y, (pad_l, pad_l))
+        if algorithm == "dense":
+            return mel_power_dense_plain(rows, rms_scale, cfg, num_frames, first_frame=first_frame, exact=exact)
+        if fused_dots:
+            return mel_power_ct_fused_plain(rows, rms_scale, cfg, num_frames, first_frame=first_frame, exact=exact)
+        return mel_power_ct_plain(rows, rms_scale, cfg, num_frames, first_frame=first_frame, exact=exact,
+                                  ablate=tuple(ablate))
     if y.device.type != "cuda":
         raise ValueError(f"mel_power runs on cuda or cpu tensors, got {y.device}")
     if not pre_padded:
@@ -403,33 +652,36 @@ def mel_power(
     B, L = y.shape
     if B > 65535:
         raise ValueError(f"at most 65535 rows per launch, got {B}")
-    source = "mel_power_ct" if algorithm == "ct" else "mel_power_dense"
-    lib = _lib(source)
+    source = "mel_power_dense" if algorithm == "dense" else "mel_power_ct_split" if fused_dots else "mel_power_ct"
+    # ablated instantiations live in libraries of their own: the serving library holds none
+    lib = _lib(ablate_library(mask) if mask else source)
     smem = getattr(lib, f"{source}_smem_bytes")(cfg.n_fft, cfg.hop_length)
     if smem > SMEM_LIMIT:
         raise NotImplementedError(
             f"n_fft={cfg.n_fft}, hop={cfg.hop_length} needs {smem} B of shared memory"
         )
-    tables = _tables(cfg, y.device, algorithm, exact)
+    tables = _tables(cfg, y.device, "ct_frag" if fused_dots else algorithm, exact)
     out = torch.empty((B, num_frames, cfg.n_mels), device=y.device, dtype=torch.float32)
     shape = [cfg.n_fft, cfg.hop_length, cfg.n_mels]
     if algorithm == "dense":
         shape.append(tables[0].shape[1])  # n_freq_pad
+    mode = [int(not exact)] + ([mask] if source == "mel_power_ct" else [])
     with torch.cuda.device(y.device):
         err = getattr(lib, f"{source}_launch")(
             y.data_ptr(), L, rms_scale.data_ptr() if rms_scale is not None else None,
             *(t.data_ptr() for t in tables), out.data_ptr(),
-            B, num_frames, first_frame, pad_l, *shape, int(not exact),
+            B, num_frames, first_frame, pad_l, *shape, *mode,
             torch.cuda.current_stream(y.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{source} launch failed: cudaError_t {err}")
-    mel_power.launches[kernel_name(cfg, algorithm, exact)] += 1
+    mel_power.launches[kernel_name(cfg, algorithm, exact, fused_dots)] += 1
     return out
 
 
 KERNEL_NAMES = ("mel_power_ct", "mel_power_ct_hop32", "mel_power_ct_bf16",
-                "mel_power_dense", "mel_power_dense_bf16")
+                "mel_power_dense", "mel_power_dense_bf16",
+                "mel_power_ct_fused", "mel_power_ct_fused_bf16")
 # launches by kernel and mode; a wrapper adds one where it launches, nowhere else
 mel_power.launches = dict.fromkeys(KERNEL_NAMES, 0)
 

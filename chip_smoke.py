@@ -1,12 +1,12 @@
 """On-card smoke run of the PyTorch/CUDA port (``anuraxla_torch``).
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--profile] [--dense-checkpoints [WHICH]]
 
 Needs one CUDA card, ``nvcc`` and the checkout it sits in. Phases (any
 failure exits non-zero):
 1. build every Hopper kernel of ``anuraxla_torch/csrc`` (one nvcc each, all
    started together);
-2. hold each kernel and mode against its plain PyTorch version on the card,
+2. hold each serving kernel and mode against its plain PyTorch version on the card,
    each row against its own max, with a silent and a clipping row: the
    Cooley-Tukey kernel exact (``DEFAULT_MEL``, R = 2), in its bf16 mode (full
    range and the fast tier's frame range), at hop 320 / 160 / 96; the dense
@@ -19,32 +19,55 @@ failure exits non-zero):
    ``DEFAULT_MEL`` (pre-padded host rows), the fast tier at ``DEFAULT_MEL``
    (crop-first frontend, bf16 kernel, bf16 trunk), the parity tier at hop 320
    and at hop 240, the fast tier at hop 240. f32 latents must match the same session on the CPU and the
-   decisions must agree;
+   decisions must agree, and no serving path may launch the split kernel;
 4. time ``encode_array`` (chunks/s, balanced and fast tier), each kernel, its
    plain version, its bound and one PyTorch library call computing the same
    function;
-5. print the kernels line, the card's name and power limit, and last the
+5. the kernel study, after every serving phase so that those run as they did
+   before it existed: hold the split-bf16 tensor-core kernel
+   (``fused_dots=True``) to its plain version, exact and bf16, at
+   ``DEFAULT_MEL`` pre-padded, at the fast tier's frame range, at hop 320 and
+   at R = 2, to the plain version with f64 sums, and the exact mode to the
+   plain f32 version; hold each ablated instantiation of the Cooley-Tukey
+   kernel to its ablated plain version; drive the study path at full width
+   (B = 1024, 626 frames), counts set to 0 just before: the variants sweep
+   (hop 384 and hop 320), the pre-padded variants, the ablation probe (exact
+   and bf16), the stage split and the three-leg bench, through the ``main`` of
+   each module of ``anuraxla_torch.probes`` and of ``anuraxla_torch.bench``
+   (the split kernel's counts must move there); time the split kernel;
+6. print the kernels line, the card's name and power limit, and last the
    device line.
+
+``--dense-checkpoints`` is a diagnostic: it also times the dense kernel between
+the phases and, last, with its tables uploaded again at other addresses, and
+prints each time beside the addresses (``[dense-checkpoint]`` lines).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
+import io
 import json
-import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet, dense rates): FP32 outside the
-# tensor cores, bf16 on them, and HBM3 bandwidth. An exact mode is bounded at
-# the FP32 rate; a bf16 mode (every product has bf16 operands, f32 sums) at
-# the bf16 rate. Its scale, window and power steps stay f32 but are under a
-# tenth of the work; taking the whole at the bf16 rate can only lower the bound.
+# tensor cores, bf16 on them, and HBM3 bandwidth. A kernel is bounded at the
+# peak of the type it multiplies in: the FP32 FFMA kernels' exact modes at the
+# FP32 rate; every bf16 mode, and both modes of the split kernel (each product
+# has bf16 operands, f32 sums), at the bf16 rate, the split kernel's exact mode
+# with the function's least work counted once for each of its three passes
+# (hi*hi, hi*lo, lo*hi). The scale, window and power steps stay f32 but are
+# under a tenth of the work; taking the whole at the bf16 rate can only lower
+# the bound.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -58,9 +81,13 @@ PEAK_BYTES_PER_S = 3.35e12
 # sums (rounding points unchanged), from which both differ alike. The largest
 # difference is gated just above the largest measured (2.565e-3), and the
 # MEAN difference at REL_TOL: flips are rare, a misplaced rounding point
-# would move every value.
+# would move every value. With ablate=("power",) the bf16 mode rounds a SIGNED
+# p = x_re + x_im, the filterbank sum cancels, and one term can exceed the row's
+# max: there a single flip is held to one bf16 step (2^-7) of a term twice that
+# max (the largest measured is 6.3e-3), and the mean gate carries the check.
 REL_TOL = 2e-5
 REL_TOL_BF16_MAX = 3e-3
+REL_TOL_BF16_SIGNED_MAX = 2.0 ** -6
 TIMING_B = 1024  # rows of a timed batch
 
 PF = "anuraxla/ops/pallas_frontend.py"
@@ -71,25 +98,16 @@ KERNELS = {
     "mel_power_ct_hop32": ("anuraxla_torch/csrc/mel_power_ct.cu", f"{PF}:739 (_mel_power_ct_kernel)"),
     "mel_power_dense": ("anuraxla_torch/csrc/mel_power_dense.cu", f"{PF}:66 (_mel_power_kernel, exact)"),
     "mel_power_dense_bf16": ("anuraxla_torch/csrc/mel_power_dense.cu", f"{PF}:66 (_mel_power_kernel, exact=False)"),
+    "mel_power_ct_fused": ("anuraxla_torch/csrc/mel_power_ct_split.cu",
+                           f"{PF}:513 (_ct_outer_stage_fused, exact; _ct_tables_folded_cat :197)"),
+    "mel_power_ct_fused_bf16": ("anuraxla_torch/csrc/mel_power_ct_split.cu",
+                                f"{PF}:513 (_ct_outer_stage_fused, exact=False :542-562)"),
 }
+FUSED = ("mel_power_ct_fused", "mel_power_ct_fused_bf16")  # launched by the study path alone
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` in ms, CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def test_rows(cfg, B: int, rng: np.random.Generator) -> np.ndarray:
@@ -104,12 +122,9 @@ def test_rows(cfg, B: int, rng: np.random.Generator) -> np.ndarray:
 
 def pre_pad(cfg, y: np.ndarray) -> np.ndarray:
     """Rows in the ct kernel's pre-padded layout for the full clip."""
-    from anuraxla_torch.ops.mel_kernel import phase_padded_layout
+    from anuraxla_torch.probes.common import pre_padded_rows
 
-    L_pad, off = phase_padded_layout(cfg, cfg.total_frames)
-    yp = np.zeros((y.shape[0], L_pad), np.float32)
-    yp[:, off : off + cfg.num_samples] = y
-    return yp
+    return pre_padded_rows(cfg, y)[0]
 
 
 def frame_range(cfg, fast: bool):
@@ -149,6 +164,20 @@ def ct_gemm_flops(cfg, B: int, T: int) -> float:
     return 2.0 * fma * B * T
 
 
+def ct_split_flops(cfg, B: int, T: int, exact: bool) -> float:
+    """Tensor-core flops the split kernel's form does: per r one product of
+    depth K1 (real-only r) or 2 K1 into 256 columns and one of depth K1 into
+    the mels, K1 = 384 (hi, hi, lo segments) or 128 in the bf16 mode; its own
+    work, not its bound."""
+    R = cfg.n_fft // 128
+    K1 = 384 if exact else 128
+    fma = 0
+    for r in range(R // 2 + 1):
+        real = r == 0 or 2 * r == R
+        fma += (1 if real else 2) * K1 * 256 + K1 * cfg.n_mels
+    return 2.0 * fma * B * T
+
+
 def dense_gemm_flops(cfg, B: int, T: int) -> float:
     """FP32 flops the dense kernel's form does (frames against both padded
     bases, then the padded filterbank): its own work, not its bound."""
@@ -158,15 +187,22 @@ def dense_gemm_flops(cfg, B: int, T: int) -> float:
 
 def phase_build() -> None:
     from anuraxla_torch.ops import _build
+    from anuraxla_torch.ops.mel_kernel import ablate_library, ablate_mask
 
-    names = _build.sources()
+    # every source, and the ablated instantiations this run compares and times
+    names = _build.sources() + [ablate_library(ablate_mask(a)) for a in ABLATIONS]
     t0 = time.perf_counter()
     _build.build(names)
-    for name in names:
+    # loaded now: the serving libraries alone. The study's load at their first
+    # use, after every serving phase, so that those phases run in a process
+    # that holds what it held before the study existed
+    study = {Path(KERNELS[k][0]).stem for k in FUSED}
+    serving = [name for name in _build.sources() if name not in study]
+    for name in serving:
         _build.load(name)
-    log(f"[build] {', '.join(names)} built (one nvcc each, together) + loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for name in names:
+    log(f"[build] {', '.join(names)} built (one nvcc each, together) in {time.perf_counter() - t0:.2f} s; "
+        f"loaded: {', '.join(serving)}")
+    for name in _build.sources():
         for line in _build.lib_path(name).with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {name}: {line.strip()}")
@@ -206,40 +242,82 @@ def kernel_inputs(cfg, B: int, rng, *, fast: bool, pre_padded: bool):
     return raw, torch.nn.functional.pad(raw, (pad, pad)), s, first, T
 
 
-# (kernel, config label, B, exact, algorithm, fast range, pre-padded rows);
+class Case(NamedTuple):
+    """One kernel-vs-plain comparison."""
+    kernel: str  # the launch counter that must move
+    label: str  # config, by its name in configs()
+    B: int
+    exact: bool
+    algorithm: str = "ct"
+    fast: bool = False  # the fast frontend's frame range
+    pre_padded: bool = False
+    fused: bool = False  # the split kernel (fused_dots=True)
+    ablate: tuple = ()  # classes dropped (profiling instantiations)
+
+
 # the first case of each kernel is at the shape its main path gives it
 CASES = [
-    ("mel_power_ct", "DEFAULT_MEL", 64, True, "ct", False, True),
-    ("mel_power_ct", "n_fft256_hop128", 8, True, "ct", False, True),
-    ("mel_power_ct_bf16", "DEFAULT_MEL", 64, False, "ct", True, False),
-    ("mel_power_ct_bf16", "DEFAULT_MEL", 64, False, "ct", False, True),
-    ("mel_power_ct_hop32", "hop320", 32, True, "ct", False, False),
-    ("mel_power_ct_hop32", "hop160", 16, True, "ct", False, False),
-    ("mel_power_ct_hop32", "n_fft512_hop96", 8, True, "ct", False, False),
-    ("mel_power_dense", "hop240", 8, True, "dense", False, False),
-    ("mel_power_dense", "n_fft400_hop80", 8, True, "dense", False, False),
-    ("mel_power_dense_bf16", "hop240", 8, False, "dense", True, False),
-    ("mel_power_dense_bf16", "hop240", 8, False, "dense", False, False),
-    ("mel_power_dense_bf16", "n_fft400_hop80", 8, False, "dense", False, False),
+    Case("mel_power_ct", "DEFAULT_MEL", 64, True, pre_padded=True),
+    Case("mel_power_ct", "n_fft256_hop128", 8, True, pre_padded=True),
+    Case("mel_power_ct_bf16", "DEFAULT_MEL", 64, False, fast=True),
+    Case("mel_power_ct_bf16", "DEFAULT_MEL", 64, False, pre_padded=True),
+    Case("mel_power_ct_hop32", "hop320", 32, True),
+    Case("mel_power_ct_hop32", "hop160", 16, True),
+    Case("mel_power_ct_hop32", "n_fft512_hop96", 8, True),
+    Case("mel_power_dense", "hop240", 8, True, "dense"),
+    Case("mel_power_dense", "n_fft400_hop80", 8, True, "dense"),
+    Case("mel_power_dense_bf16", "hop240", 8, False, "dense", fast=True),
+    Case("mel_power_dense_bf16", "hop240", 8, False, "dense"),
+    Case("mel_power_dense_bf16", "n_fft400_hop80", 8, False, "dense"),
 ]
+# the kernel study's cases. They run after the serving phases and draw their
+# rows from a generator of their own, so that neither the inputs of the
+# serving phases nor the state of the card at their timings depends on them
+STUDY_CASES = [
+    Case("mel_power_ct_fused", "DEFAULT_MEL", 64, True, pre_padded=True, fused=True),
+    Case("mel_power_ct_fused", "DEFAULT_MEL", 64, True, fast=True, fused=True),
+    Case("mel_power_ct_fused", "hop320", 32, True, fused=True),
+    Case("mel_power_ct_fused", "n_fft256_hop128", 8, True, pre_padded=True, fused=True),
+    Case("mel_power_ct_fused_bf16", "DEFAULT_MEL", 64, False, pre_padded=True, fused=True),
+    Case("mel_power_ct_fused_bf16", "DEFAULT_MEL", 64, False, fast=True, fused=True),
+    Case("mel_power_ct_fused_bf16", "hop320", 32, False, fused=True),
+]
+# each wired ablation class and the probe's floor (all four), in both modes;
+# their launches count under the intact kernel's name
+ABLATIONS = [("window",), ("inner",), ("power",), ("fb",), ("window", "inner", "power", "fb")]
+STUDY_CASES += [Case("mel_power_ct" if exact else "mel_power_ct_bf16", "DEFAULT_MEL", 16, exact, pre_padded=True,
+                     ablate=a) for exact in (True, False) for a in ABLATIONS]
 
 
-def phase_kernel_vs_plain(rng) -> dict:
+def row_rel(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """|got - ref| of each row's max |ref|, elementwise."""
+    return (got - ref).abs() / ref.abs().amax(dim=(1, 2), keepdim=True)
+
+
+def phase_kernel_vs_plain(cases, rng) -> dict:
     """-> {kernel: (max_abs_err, max_rel_err)} at each kernel's main-path shape."""
     from anuraxla_torch.ops import mel_kernel as mk
 
     if set(KERNELS) != set(mk.KERNEL_NAMES):
         raise AssertionError(f"this script lists {sorted(KERNELS)}, the wrapper counts {mk.KERNEL_NAMES}")
+    if sorted(set(a[0] for a in ABLATIONS if len(a) == 1)) != sorted(mk.ABLATE_CLASSES):
+        raise AssertionError(f"this script ablates {ABLATIONS}, the wrapper wires {mk.ABLATE_CLASSES}")
     result, failures = {}, []
-    for kernel, label, B, exact, algorithm, fast, pre_padded in CASES:
+    for case in cases:
+        kernel, label, B, exact = case.kernel, case.label, case.B, case.exact
         cfg = configs()[label]
-        x, x_padded, s, first, T = kernel_inputs(cfg, B, rng, fast=fast, pre_padded=pre_padded)
+        x, x_padded, s, first, T = kernel_inputs(cfg, B, rng, fast=case.fast, pre_padded=case.pre_padded)
         n0 = mk.mel_power.launches[kernel]
-        got = mk.mel_power(x, cfg, num_frames=T, first_frame=first, rms_scale=s,
-                           pre_padded=pre_padded, exact=exact, algorithm=algorithm)
+        got = mk.mel_power(x, cfg, num_frames=T, first_frame=first, rms_scale=s, pre_padded=case.pre_padded,
+                           exact=exact, algorithm=case.algorithm, fused_dots=case.fused, ablate=case.ablate)
         if mk.mel_power.launches[kernel] != n0 + 1:
             raise AssertionError(f"{kernel} {label}: the wrapper did not count its launch")
-        plain = mk.mel_power_ct_plain if algorithm == "ct" else mk.mel_power_dense_plain
+        if case.fused:
+            plain = mk.mel_power_ct_fused_plain
+        elif case.algorithm == "dense":
+            plain = mk.mel_power_dense_plain
+        else:
+            plain = functools.partial(mk.mel_power_ct_plain, ablate=case.ablate)
         ref = plain(x_padded, s, cfg, T, first_frame=first, exact=exact)
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got).all():
@@ -247,26 +325,39 @@ def phase_kernel_vs_plain(rng) -> dict:
         abs_err = float((got - ref).abs().max())
         # each row against its own max, so the silent row (mel power ~1e-12
         # of the others, raw passthrough) is held to the same bound
-        rel = (got - ref).abs() / ref.abs().amax(dim=(1, 2), keepdim=True)
-        row_rel = rel.amax(dim=(1, 2))
-        worst, mean = float(row_rel.max()), float(rel.mean())
-        tol = REL_TOL if exact else REL_TOL_BF16_MAX
-        log(f"[kernel-vs-plain] {kernel} {label} B={B} frames {first}..{first + T - 1}: "
+        rel = row_rel(got, ref)
+        per_row = rel.amax(dim=(1, 2))
+        worst, mean = float(per_row.max()), float(rel.mean())
+        signed_p = "power" in case.ablate and "fb" not in case.ablate  # fb dropped: p is not rounded
+        tol = REL_TOL if exact else REL_TOL_BF16_SIGNED_MAX if signed_p else REL_TOL_BF16_MAX
+        what = f"{kernel}{' ablate=' + '+'.join(case.ablate) if case.ablate else ''} {label}"
+        log(f"[kernel-vs-plain] {what} B={B} frames {first}..{first + T - 1}: "
             f"max|diff|={abs_err:.3e}; of each row's max: worst {worst:.3e} (tol {tol}), "
             f"mean {mean:.3e} (tol {REL_TOL}), share above {REL_TOL}: {float((rel > REL_TOL).float().mean()):.4f} "
-            f"(silent row {float(row_rel[0]):.3e}, clipping row {float(row_rel[1]):.3e})")
-        if algorithm == "ct" and not exact:
-            # where the bf16 differences come from: the same rounding points with f64 sums
-            ref64 = plain(x_padded, s, cfg, T, first_frame=first, exact=False, sums=torch.float64)
-            peak = ref64.abs().amax(dim=(1, 2), keepdim=True)
-            vs64 = {n: (v - ref64).abs() / peak for n, v in (("kernel", got), ("plain", ref))}
+            f"(silent row {float(per_row[0]):.3e}, clipping row {float(per_row[1]):.3e})")
+        if case.fused or (case.algorithm == "ct" and not exact and not case.ablate):
+            # where the differences come from: the same rounding points with
+            # f64 sums. For the split kernel this is the tensor cores' f32
+            # accumulation against an exact sum of the same bf16 products
+            ref64 = plain(x_padded, s, cfg, T, first_frame=first, exact=exact, sums=torch.float64)
+            vs64 = {n: row_rel(v, ref64) for n, v in (("kernel", got), ("plain", ref))}
             log(f"[kernel-vs-plain]   against the plain version with f64 sums, of each row's max: " + "; ".join(
                 f"{n} worst {float(r.max()):.3e}, mean {float(r.mean()):.3e}, share above {REL_TOL}: "
                 f"{float((r > REL_TOL).float().mean()):.4f}" for n, r in vs64.items()))
             del ref64, vs64
         if not (worst <= tol and mean <= REL_TOL):
-            failures.append(f"{kernel} {label}: kernel disagrees with plain version (worst {worst:.3e}, mean {mean:.3e})")
-        result.setdefault(kernel, (abs_err, worst))
+            failures.append(f"{what}: kernel disagrees with plain version (worst {worst:.3e}, mean {mean:.3e})")
+        if case.fused and exact:
+            # the split scheme must hold the exact tier's gate against plain
+            # f32 arithmetic too (this also catches a fault in the shared tables)
+            f32 = mk.mel_power_ct_plain(x_padded, s, cfg, T, first_frame=first)
+            vs_f32 = row_rel(got, f32)
+            log(f"[kernel-vs-plain]   against the plain f32 version (no split), of each row's max: "
+                f"worst {float(vs_f32.max()):.3e} (tol {REL_TOL}), mean {float(vs_f32.mean()):.3e}")
+            if not float(vs_f32.max()) <= REL_TOL:
+                failures.append(f"{what}: the split scheme misses the exact gate (worst {float(vs_f32.max()):.3e})")
+        if not case.ablate:
+            result.setdefault(kernel, (abs_err, worst))
     if failures:
         raise AssertionError("; ".join(failures))
     return result
@@ -350,6 +441,8 @@ def drive_path(label, kernel, paths, cfg_path, params, mel, knobs, *, f32_gate):
         f"trunk dtype(s) {list(sessions)}: launches {counts}")
     if counts[kernel] <= 0:
         raise AssertionError(f"{label}: the main path did not launch {kernel}")
+    if any(counts[k] for k in FUSED):
+        raise AssertionError(f"{label}: a serving path launched the study's split kernel: {counts}")
 
     for dt, (Z, ok, err, _) in out.items():
         if not (ok.all() and okc.all()):
@@ -418,6 +511,78 @@ def phase_main_paths(seed: int, rng) -> dict:
     return launches
 
 
+def phase_study_path() -> dict:
+    """The kernel-study path at full width (``DEFAULT_MEL``, B = 1024, 626
+    frames, default ``VAEConfig``), through the entry points a user calls: the
+    ``main`` of each probe and of the bench, with a short measuring time. Launch counts are set
+    to 0 just before and read just after. Each probe's JSON lines are checked:
+    times positive and finite, the split kernel within its gates of the
+    non-fused exact kernel (2e-5 exact; 5e-3 for a bf16 mode against the exact
+    kernel, the reference suite's gate). -> {kernel: launches}."""
+    from anuraxla_torch.ops.mel_kernel import mel_power, reset_launches
+    from anuraxla_torch import bench
+    from anuraxla_torch.probes import kernel_ablation, kernel_variants, phase_variants, profile_stages
+
+    size = ["--batch", str(TIMING_B), "--measure-s", "0.5"]
+
+    def run(name, main, argv, frames=626):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            main(size + argv)
+        records = [json.loads(line) for line in out.getvalue().splitlines()]
+        for rec in records:
+            log(f"[study-path {name}] {json.dumps(rec)}")
+            ms = rec.get("ms_per_batch")
+            if ms is not None and not (np.isfinite(ms) and ms > 0):
+                raise AssertionError(f"{name}: no time in {rec}")
+        head = records[0]
+        if head["batch"] != TIMING_B or head["frames"] != frames or "H100" not in head["device"]:
+            raise AssertionError(f"{name}: not the full-width run on the card: {head}")
+        return records[1:]
+
+    reset_launches()  # count only the study path from here
+    for name, hop, frames in (("kernel_variants", [], 626), ("kernel_variants hop320", ["--hop-length", "320"], 751)):
+        variants = run(name, kernel_variants.main, ["--bf16"] + hop, frames)
+        if [(r["fused"], r["exact"]) for r in variants] != [(False, True), (False, False), (True, True), (True, False)]:
+            raise AssertionError(f"{name}: unexpected sweep {variants}")
+        for r in variants:
+            gate = REL_TOL if r["exact"] else 5e-3
+            if not r["max_rel_err_vs_baseline"] <= gate:
+                raise AssertionError(f"{name}: {r} is past {gate} of the non-fused exact kernel")
+        if hop and mel_power.launches["mel_power_ct_hop32"] <= 0:
+            raise AssertionError(f"{name}: the hop % 32 family's kernel was not launched")
+    phases = run("phase_variants", phase_variants.main, [])
+    if len(phases) != 2 or not all(r["max_rel_err_vs_first"] <= REL_TOL for r in phases):
+        raise AssertionError(f"phase_variants: the fused variant is past {REL_TOL} of the first: {phases}")
+    for mode in ([], ["--bf16"]):
+        rows = run("kernel_ablation" + "".join(mode), kernel_ablation.main, mode)
+        timed = {r["variant"]: r["ms_per_batch"] for r in rows if "ms_per_batch" in r}
+        if not timed["floor"] < min(timed["baseline"], timed["baseline-close"]):
+            raise AssertionError(f"kernel_ablation: dropping every class did not shorten the kernel: {timed}")
+    stages = run("profile_stages", profile_stages.main, [])
+    if [r["stage"] for r in stages] != ["full", "melpow", "frontend", "encoder", "detect"]:
+        raise AssertionError(f"profile_stages: unexpected stages {stages}")
+    # the bench prints one line: three legs (balanced, f32 encoder, fast tier), each a positive rate
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main(["--batch", str(TIMING_B), "--measure-s", "0.5", "--max-leg-s", "5"])
+    (rec,) = [json.loads(line) for line in out.getvalue().splitlines()]
+    log(f"[study-path bench] {json.dumps(rec)}")
+    rates = [rec["value"], rec["value_f32_encoder"], rec["value_fast_tier"]]
+    if rec["batch"] != TIMING_B or "H100" not in rec["device"] or not all(np.isfinite(r) and r > 0 for r in rates):
+        raise AssertionError(f"bench: not three positive rates at full width on the card: {rec}")
+    if not all(w and all(x > 0 for x in w) for w in rec["windows"].values()):
+        raise AssertionError(f"bench: a leg measured no window: {rec['windows']}")
+    torch.cuda.synchronize()
+    counts = dict(mel_power.launches)
+    log(f"[study-path] B={TIMING_B} x 626 frames (751 at hop 320), four probes and the bench: launches {counts}")
+    for k in FUSED:
+        if counts[k] <= 0:
+            raise AssertionError(f"the study path did not launch {k}")
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in FUSED}
+
+
 def library_mel(cfg, raw: torch.Tensor, first: int, T: int, fb: torch.Tensor, win: torch.Tensor):
     """The library yardstick (never called by the port): one ``torch.stft``
     over the samples the frames need -> |.|^2 @ FB."""
@@ -434,50 +599,89 @@ def library_mel(cfg, raw: torch.Tensor, first: int, T: int, fb: torch.Tensor, wi
 
 
 def time_kernel(kernel: str, label: str, B: int, rng, *, exact: bool, algorithm: str,
-                fast: bool, pre_padded: bool, iters: int) -> dict:
+                fast: bool, pre_padded: bool, iters: int, fused: bool = False) -> dict:
     """Kernel, plain version, library call (CUDA events) and the bound, at
     one config and batch."""
     from anuraxla_torch.ops import mel_kernel as mk
     from anuraxla_torch.ops.mel import mel_filterbank
+    from anuraxla_torch.probes.common import cuda_ms
 
     cfg = configs()[label]
     x, x_padded, s, first, T = kernel_inputs(cfg, B, rng, fast=fast, pre_padded=pre_padded)
-    ms = cuda_ms(lambda: mk.mel_power(x, cfg, num_frames=T, first_frame=first, rms_scale=s,
-                                      pre_padded=pre_padded, exact=exact, algorithm=algorithm), iters=iters)
-    plain = mk.mel_power_ct_plain if algorithm == "ct" else mk.mel_power_dense_plain
+    ms = cuda_ms(lambda: mk.mel_power(x, cfg, num_frames=T, first_frame=first, rms_scale=s, pre_padded=pre_padded,
+                                      exact=exact, algorithm=algorithm, fused_dots=fused), iters=iters)
+    plain = (mk.mel_power_ct_fused_plain if fused else mk.mel_power_ct_plain if algorithm == "ct"
+             else mk.mel_power_dense_plain)
     plain_ms = cuda_ms(lambda: plain(x_padded, s, cfg, T, first_frame=first, exact=exact), iters=2, warmup=1)
     fb_np = mel_filterbank(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
     # samples of a row the frames need: the whole row as given for the full
     # clip, else the frame range's span
     L = x.shape[1] if not fast else (T - 1) * cfg.hop_length + cfg.n_fft
     flops, nbytes = mel_work(cfg, fb_np, B, T, L)
-    peak, peak_name = (PEAK_FP32_FLOPS, "FP32") if exact else (PEAK_BF16_FLOPS, "bf16")
+    # the peak of the operands the kernel multiplies: bf16 on the tensor cores
+    # in a bf16 mode and in the split kernel, whose exact mode makes three passes
+    peak, peak_name = (PEAK_BF16_FLOPS, "bf16") if fused or not exact else (PEAK_FP32_FLOPS, "FP32")
+    passes = 3 if fused and exact else 1
+    flops *= passes
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    own = (ct_gemm_flops if algorithm == "ct" else dense_gemm_flops)(cfg, B, T)
+    if fused:
+        own, unit = ct_split_flops(cfg, B, T, exact), "bf16 mma.sync"
+    else:
+        own, unit = (ct_gemm_flops if algorithm == "ct" else dense_gemm_flops)(cfg, B, T), "FP32 FFMA"
 
     off = cfg.n_fft // 2
     raw = x[:, off : off + cfg.num_samples] if pre_padded else x
     win = torch.hann_window(cfg.n_fft, periodic=True, device="cuda")
     fb = torch.from_numpy(fb_np).cuda()
     library_ms = cuda_ms(lambda: library_mel(cfg, raw, first, T, fb, win), iters=5)
+    tables = mk._tables(cfg, x.device, "ct_frag" if fused else algorithm, exact)
     log(f"[times] {kernel} {label} B={B} frames {first}..{first + T - 1}: kernel {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, library(torch.stft) {library_ms:.3f} ms (kernel/library {ms / library_ms:.2f}x), "
         f"bound {bound_ms:.3f} ms by {bound_by} (function's least work: {flops / 1e9:.2f} GFLOP "
-        f"-> {t_ops:.3f} ms at the {peak_name} peak, {nbytes / 1e9:.3f} GB -> {t_bytes:.3f} ms) = {100 * bound_ms / ms:.2f}% of bound; "
-        f"the kernel's own form does {own / 1e12:.3f} TFLOP = {own / ms / 1e9:.2f} TFLOP/s on FP32 FFMA")
+        f"{'x 3 passes ' if passes == 3 else ''}-> {t_ops:.3f} ms at the {peak_name} peak, {nbytes / 1e9:.3f} GB -> {t_bytes:.3f} ms) = {100 * bound_ms / ms:.2f}% of bound; "
+        f"the kernel's own form does {own / 1e12:.3f} TFLOP = {own / ms / 1e9:.2f} TFLOP/s on {unit}; "
+        f"tables at {[hex(t.data_ptr()) for t in tables]}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 config=f"{label} B={B} frames {first}..{first + T - 1}")
 
 
-def phase_times(seed: int, rng, profile: bool = False) -> dict:
-    """-> {"chunks_per_s": {...}, kernel: times}."""
+def dense_checkpoint(where: str, shift_mb: int | None = None) -> None:
+    """Diagnostic (``--dense-checkpoints``): the dense kernel's time at this
+    point of the run, at the shape it is timed at, on rows of its own, with
+    the device addresses of its tables and rows. The kernel streams its two
+    9.4 MB bases from L2 for every block, so its time can depend on where the
+    allocator put them, which depends on everything the process did before.
+    ``shift_mb``: first drop the tables from the device and hold that many MB,
+    so that they are uploaded again somewhere else."""
+    from anuraxla_torch.ops import mel_kernel as mk
+    from anuraxla_torch.probes.common import cuda_ms
+
+    cfg = configs()["hop240"]
+    hold = None
+    if shift_mb is not None:
+        mk._device_tables.cache_clear()
+        torch.cuda.empty_cache()
+        hold = torch.empty(shift_mb << 20, dtype=torch.uint8, device="cuda")
+    x = torch.from_numpy(test_rows(cfg, TIMING_B // 4, np.random.default_rng(240))).cuda()
+    ms = cuda_ms(lambda: mk.mel_power(x, cfg, num_frames=cfg.total_frames, algorithm="dense"), iters=3)
+    tabs = mk._tables(cfg, x.device, "dense", True)
+    log(f"[dense-checkpoint] {where}: mel_power_dense hop240 B={TIMING_B // 4} {ms:.3f} ms; C, S, FB at "
+        f"{[hex(t.data_ptr()) for t in tabs]}, rows at {hex(x.data_ptr())}; "
+        f"{torch.cuda.memory_allocated() >> 20} MB allocated, {torch.cuda.memory_reserved() >> 20} MB reserved")
+    del x, hold
+
+
+def phase_times(seed: int, rng, profile: bool = False, checkpoint=lambda where: None) -> dict:
+    """-> {"chunks_per_s": {...}, kernel: times}. ``checkpoint(where)`` is
+    called between its steps (``--dense-checkpoints``)."""
     from anuraxla_torch.cli.common import SERVING_TIERS
     from anuraxla_torch.constants import DEFAULT_MEL as cfg
     from anuraxla_torch.models.vae import VAEConfig, init_encoder_params
     from anuraxla_torch.ops.frontend import log_mel_batch, mel_to_encoder_input, rms_scale_batch
     from anuraxla_torch.pipeline.session import EncoderSession
+    from anuraxla_torch.probes.common import cuda_ms
 
     params = init_encoder_params(VAEConfig(), torch.Generator().manual_seed(seed))
     B = TIMING_B
@@ -535,6 +739,7 @@ def phase_times(seed: int, rng, profile: bool = False) -> dict:
         del dev, x
     del sessions
     torch.cuda.empty_cache()
+    checkpoint("after the tiers' timings")
 
     out["mel_power_ct"] = time_kernel("mel_power_ct", "DEFAULT_MEL", B, rng, exact=True, algorithm="ct",
                                       fast=False, pre_padded=True, iters=10)
@@ -542,12 +747,24 @@ def phase_times(seed: int, rng, profile: bool = False) -> dict:
                                            algorithm="ct", fast=True, pre_padded=False, iters=10)
     out["mel_power_ct_hop32"] = time_kernel("mel_power_ct_hop32", "hop320", B, rng, exact=True,
                                             algorithm="ct", fast=False, pre_padded=False, iters=5)
+    checkpoint("after the ct kernels' timings")
     # the dense form does ~150x the function's least work: timed at a quarter of the batch
     out["mel_power_dense"] = time_kernel("mel_power_dense", "hop240", B // 4, rng, exact=True,
                                          algorithm="dense", fast=False, pre_padded=False, iters=3)
     out["mel_power_dense_bf16"] = time_kernel("mel_power_dense_bf16", "hop240", B, rng, exact=False,
                                               algorithm="dense", fast=True, pre_padded=False, iters=3)
+    checkpoint("after the dense kernels' timings")
     return out
+
+
+def phase_study_times(rng) -> dict:
+    """-> {kernel: times} of the split kernel, at the shapes of rows 1 and 2."""
+    return {
+        "mel_power_ct_fused": time_kernel("mel_power_ct_fused", "DEFAULT_MEL", TIMING_B, rng, exact=True,
+                                          algorithm="ct", fast=False, pre_padded=True, iters=5, fused=True),
+        "mel_power_ct_fused_bf16": time_kernel("mel_power_ct_fused_bf16", "DEFAULT_MEL", TIMING_B, rng, exact=False,
+                                               algorithm="ct", fast=True, pre_padded=False, iters=5, fused=True),
+    }
 
 
 def main() -> None:
@@ -555,6 +772,10 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also print torch.profiler's kernel table for one B=1024 forward of each tier")
+    ap.add_argument("--dense-checkpoints", nargs="?", const="", default=None, metavar="WHICH",
+                    help="diagnostic: also time the dense kernel after every phase, and last with its tables "
+                         "uploaded again at other addresses; prints [dense-checkpoint] lines. WHICH keeps only "
+                         "the checkpoints whose name holds it (each one moves the allocator for the next)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -570,10 +791,23 @@ def main() -> None:
     torch.manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
     t_start = time.perf_counter()
+    def checkpoint(where: str, **kw) -> None:
+        if args.dense_checkpoints is not None and args.dense_checkpoints in where:
+            dense_checkpoint(where, **kw)
+
     phase_build()
-    errors = phase_kernel_vs_plain(rng)
+    checkpoint("after the build")
+    errors = phase_kernel_vs_plain(CASES, rng)
+    checkpoint("after kernel-vs-plain")
     launches = phase_main_paths(args.seed, rng)
-    times = phase_times(args.seed, rng, args.profile)
+    checkpoint("after the main paths")
+    times = phase_times(args.seed, rng, args.profile, checkpoint)
+    for mb in (0, 2, 6, 10, 22, 50):
+        checkpoint(f"tables uploaded again behind {mb} MB held", shift_mb=mb)
+    study_rng = np.random.default_rng([args.seed, 3])
+    errors.update(phase_kernel_vs_plain(STUDY_CASES, study_rng))
+    launches.update(phase_study_path())
+    times.update(phase_study_times(study_rng))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
@@ -583,15 +817,14 @@ def main() -> None:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    from anuraxla_torch.probes.common import card_line
+
+    smi = card_line()
     cps = times["chunks_per_s"]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; chunks/s at B=1024: "
         f"balanced {cps['balanced']:.1f}, fast {cps['fast']:.1f}")
     print(json.dumps({"kernels": kernels}))
-    print(smi.splitlines()[0])
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

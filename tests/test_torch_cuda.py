@@ -126,6 +126,97 @@ def test_new_kernels_and_modes_match_plain(card, cfg, algorithm, exact, fast, co
         assert torch.equal(got, full[:, first:])
 
 
+FUSED = [
+    # (config, exact, fast frame range, pre-padded rows)
+    (R16, True, False, True),
+    (R16, False, False, False),
+    (dict(R16, duration=2.0), True, True, False),
+    (dict(R16, duration=2.0), False, True, False),
+    (dict(R16, hop_length=320), True, False, False),
+    (H160, False, False, False),
+    (dict(R16, hop_length=512, n_fft=1024), True, False, True),
+    (SMALL, True, False, True),  # R = 2: no complex r
+    (SMALL, False, False, False),
+    (dict(SMALL, n_fft=384, n_mels=20), True, False, False),  # odd R, a ragged mel tile
+]
+
+
+@pytest.mark.parametrize("cfg,exact,fast,pre_padded", FUSED,
+                         ids=[f"{i}-{'exact' if m[1] else 'bf16'}" for i, m in enumerate(FUSED)])
+def test_fused_kernel_matches_plain(card, cfg, exact, fast, pre_padded):
+    """``fused_dots=True`` on the card (the split kernel on the tensor cores)
+    against its plain version, and the exact mode against plain f32 too."""
+    cfg = MelConfig(**cfg)
+    total = cfg.total_frames
+    first, T = (max(0, (total - cfg.target_frames) // 2), min(cfg.target_frames, total)) if fast else (0, total)
+    y = _rows(cfg, 4, seed=7)
+    raw = torch.from_numpy(y).to(card)
+    s = tfe.rms_scale_batch(raw)
+    pad = cfg.n_fft // 2
+    x, centred = raw, torch.nn.functional.pad(raw, (pad, pad))
+    if pre_padded:
+        L_pad, off = tk.phase_padded_layout(cfg, T)
+        x = centred = torch.nn.functional.pad(raw, (off, L_pad - off - cfg.num_samples))
+    counter = "mel_power_ct_fused" if exact else "mel_power_ct_fused_bf16"
+    n0 = _launches()
+    got = tk.mel_power(x, cfg, num_frames=T, first_frame=first, rms_scale=s, pre_padded=pre_padded,
+                       exact=exact, fused_dots=True)
+    assert _launches() == dict(n0, **{counter: n0[counter] + 1})
+    ref = tk.mel_power_ct_fused_plain(centred, s, cfg, T, first_frame=first, exact=exact)
+    assert got.shape == ref.shape == (4, T, cfg.n_mels) and torch.isfinite(got).all()
+    rel = (got - ref).abs() / ref.abs().amax(dim=(1, 2), keepdim=True)
+    assert float(rel.max()) <= (2e-5 if exact else 3e-3), rel.amax(dim=(1, 2))
+    assert float(rel.mean()) <= 2e-5
+    if exact:  # the split scheme holds the exact tier's gate against plain f32
+        f32 = tk.mel_power_ct_plain(centred, s, cfg, T, first_frame=first)
+        assert float(((got - f32).abs() / f32.abs().amax(dim=(1, 2), keepdim=True)).max()) <= 2e-5
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "bf16"])
+@pytest.mark.parametrize("classes", [(c,) for c in tk.ABLATE_CLASSES] + [tk.ABLATE_CLASSES, ("window", "fb")],
+                         ids=lambda c: "+".join(c))
+@pytest.mark.parametrize("cfg", [R16, dict(R16, hop_length=512, n_fft=1024)], ids=["r16", "r8"])
+def test_ablated_kernel_matches_ablated_plain(card, cfg, classes, exact):
+    """Each ablated instantiation drops what the ablated plain version drops
+    (wrong output by design, held to the mode's gate); its launch counts under
+    the kernel's own name."""
+    cfg = MelConfig(**cfg)
+    T = cfg.total_frames
+    raw = torch.from_numpy(_rows(cfg, 3, seed=8)).to(card)
+    s = tfe.rms_scale_batch(raw)
+    counter = "mel_power_ct" if exact else "mel_power_ct_bf16"
+    n0 = _launches()
+    got = tk.mel_power(raw, cfg, num_frames=T, rms_scale=s, exact=exact, ablate=classes)
+    assert _launches() == dict(n0, **{counter: n0[counter] + 1})
+    pad = cfg.n_fft // 2
+    centred = torch.nn.functional.pad(raw, (pad, pad))
+    ref = tk.mel_power_ct_plain(centred, s, cfg, T, exact=exact, ablate=classes)
+    rel = (got - ref).abs() / ref.abs().amax(dim=(1, 2), keepdim=True)
+    # bf16 with the power dropped rounds a signed p and the filterbank sum cancels, so
+    # one term can exceed the row's max: a flipped rounding is held to a bf16 step
+    # (2^-7) of a term twice that max, not to 3e-3; the mean carries the check
+    signed_p = "power" in classes and "fb" not in classes
+    assert float(rel.max()) <= (2e-5 if exact else 2.0 ** -6 if signed_p else 3e-3), rel.amax(dim=(1, 2))
+    assert float(rel.mean()) <= 2e-5
+    intact = tk.mel_power_ct_plain(centred, s, cfg, T, exact=exact)
+    assert float((got - intact).abs().max() / intact.abs().max()) > 1e-2  # dropped, not ignored
+
+
+def test_study_options_refuse_on_cuda(card):
+    cfg = MelConfig(**R16)
+    x = torch.zeros((2, cfg.num_samples), device=card)
+    for kw, reason in ((dict(ablate=("splits",)), "one FP32 pass"), (dict(ablate=("shifts",)), "any sample offset"),
+                       (dict(ablate=("dots",), exact=False), "no split/multi-pass"),
+                       (dict(ablate=("power",), fused_dots=True), "fused-dots"),
+                       (dict(fused_dots=True, algorithm="dense"), "algorithm 'ct'")):
+        with pytest.raises(ValueError, match=reason):
+            tk.mel_power(x, cfg, num_frames=8, **kw)
+    with pytest.raises(ValueError, match="hop % 128"):
+        tk.mel_power(x, cfg.replace(hop_length=320), num_frames=8, ablate=("fb",))
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        tk.mel_power(x, cfg.replace(hop_length=4096), num_frames=4, fused_dots=True)
+
+
 def test_wrapper_refuses_on_cuda(card):
     x = torch.zeros((2, 16000), device=card)
     with pytest.raises(NotImplementedError):  # a config no kernel takes
