@@ -14,10 +14,13 @@ three TPU kernels and ``mel_power_pallas``, the function that selects one.
 - ``ct_tables_folded_cat``: the concatenated-operand tables of the
   reference's ``_ct_tables_folded_cat`` (``fused_dots=True``), bitwise, and
   ``ct_fragment_tables``: the same values in the order the tensor cores'
-  ``mma`` fragments read them.
+  ``mma`` fragments read them. ``dense_fragment_tables``: ``dense_tables``
+  split into bf16 (hi, lo) pairs (or rounded to bf16) in the dense kernel's
+  fragment order; ``dense_tile``: the dense kernel's frame tile and ring.
 - ``mel_power_ct_plain`` / ``mel_power_ct_fused_plain`` /
   ``mel_power_dense_plain``: the plain PyTorch versions of the kernels' math,
-  exact and bf16.
+  exact and bf16; ``mel_power_dense_split_plain``: the dense kernel's split
+  arithmetic (bf16×3 in the exact mode), against which the card holds it.
 - ``mel_power``: the wrapper. On a CUDA tensor it launches a hand-written
   Hopper kernel (``csrc/mel_power_ct.cu``, ``csrc/mel_power_ct_split.cu`` or
   ``csrc/mel_power_dense.cu``) or raises; it takes a plain version only for a
@@ -40,9 +43,11 @@ name                   algorithm  exact  config
 
 The first three are one source (``mel_power_ct.cu``): on this card a frame
 is read at any sample offset, so the reference's separate kernel for
-hop % 128 != 0 needs no code of its own. ``fused_dots=True`` is the
-kernel-study variant (``csrc/mel_power_ct_split.cu``): the outer stage as one
-deep product per r over bf16 hi/lo split operands, on the tensor cores.
+hop % 128 != 0 needs no code of its own. Both dense modes run on the tensor
+cores (``csrc/mel_power_dense.cu``); the exact one is the bf16×3 split.
+``fused_dots=True`` is the kernel-study variant (``csrc/mel_power_ct_split.cu``):
+the outer stage as one deep product per r over bf16 hi/lo split operands, on
+the tensor cores.
 ``ablate=`` (profiling only, wrong output by design) drops one class of work
 from the Cooley–Tukey kernel at hop % 128 == 0; its launches count under the
 kernel's own name.
@@ -306,12 +311,60 @@ def dense_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float):
     )
 
 
+DENSE_FT = 64  # frequencies of a dense kernel tile: 8 groups of 8 bins
+DENSE_KC = 64  # the dense bases' rows are padded to a multiple of this (the widest K chunk)
+
+
+def _dense_split_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, exact: bool):
+    """(C, S, FB) parts as bf16 tensors: ``dense_tables`` split into (hi, lo)
+    (``exact``) or rounded to bf16 (the ``hi`` alone), each a tuple."""
+    mats = [torch.from_numpy(a) for a in dense_tables(sr, n_fft, n_mels, fmin, fmax)]
+    return [tuple(t.to(torch.bfloat16) for t in _split_bf16(m))[: 2 if exact else 1] for m in mats]
+
+
+@functools.lru_cache(maxsize=8)
+def dense_fragment_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, exact: bool):
+    """(basis_frag, fb_frag) int32 tensors: the dense kernel's bases and
+    filterbank in the order its ``mma.sync.m16n8k16`` B fragments read them
+    (``csrc/mel_power_dense.cu``). Values: ``dense_tables`` split into bf16
+    (hi, lo) pairs (``exact``) or rounded to bf16, the rows of C and S
+    zero-padded to a multiple of ``DENSE_KC`` and the frequencies to a
+    multiple of 16.
+
+    ``basis_frag`` holds the frequency tiles of ``DENSE_FT`` bins in order
+    (the last holds what is left, G groups of 8 bins), each
+    [K/16, G, parts, 32 lanes, 4 words]: lane 4g + c holds bin 8j + g of
+    group j — words 0, 1 of C's fragment, then 2, 3 of S's — so a thread's
+    accumulators hold the real and imaginary parts of the same bins; parts
+    are (hi, lo) or (hi,). ``fb_frag`` [n_freq_pad/16, ceil(n_mels/8), 32,
+    2 * parts]: the filterbank's fragments, hi words then lo words, the mel
+    columns zero-padded to a multiple of 8."""
+    C, S, FB = _dense_split_tables(sr, n_fft, n_mels, fmin, fmax, exact)
+    n_freq_pad = -(-(n_fft // 2 + 1) // 16) * 16
+    k_pad = -(-n_fft // DENSE_KC) * DENSE_KC
+
+    def frags(m, n_cols, pad_rows=0):
+        m = F.pad(m.float()[:, :n_cols], (0, 0, 0, pad_rows)).to(torch.bfloat16)
+        return _mma_b_fragments(m, range(0, n_cols, 8))
+
+    # [K/16, groups, parts, 32, 4]
+    parts = [torch.cat([frags(c, n_freq_pad, k_pad - n_fft), frags(s, n_freq_pad, k_pad - n_fft)], -1)
+             for c, s in zip(C, S)]
+    basis = torch.stack(parts, 2)
+    tiles = [basis[:, j : j + DENSE_FT // 8].reshape(-1) for j in range(0, basis.shape[1], DENSE_FT // 8)]
+    n_tiles = -(-n_mels // 8)
+    fb = torch.cat([frags(F.pad(f.float()[:n_freq_pad], (0, 8 * n_tiles - n_mels)).to(torch.bfloat16),
+                          8 * n_tiles) for f in FB], -1)
+    return torch.cat(tiles).contiguous(), fb.contiguous()
+
+
 def _tables(cfg: MelConfig, device: torch.device, algorithm: str = "ct", exact: bool = True):
     """The kernel's tables on ``device`` — ct: (C, S, FBM, win, wr) and dense:
     (C, S, FB) as f32 tensors, C/S/FBM/FB holding bf16 values with
     ``exact=False``; "ct_cat": (rhs_real, rhs_cplx, fbcat, win, wr) of
     ``ct_tables_folded_cat`` as f32 tensors; "ct_frag": (rhs_frag, fb_frag,
-    win, wr), the int32 fragment tables of the split kernel."""
+    win, wr), the int32 fragment tables of the split kernel; "dense_frag":
+    (basis_frag, fb_frag) of ``dense_fragment_tables``."""
     return _device_tables(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax, str(device), algorithm, exact)
 
 
@@ -323,6 +376,8 @@ def _device_tables(sr, n_fft, n_mels, fmin, fmax, device: str, algorithm: str, e
         if not exact:
             mats = [round_bf16(a) for a in mats]
         rest = []
+    elif algorithm == "dense_frag":
+        mats, rest = list(dense_fragment_tables(*args, exact)), []
     elif algorithm in ("ct_cat", "ct_frag"):
         win, *cat = ct_tables_folded_cat(*args, exact)
         mats = [t.float() for t in cat] if algorithm == "ct_cat" else list(ct_fragment_tables(*args, exact))
@@ -533,6 +588,44 @@ def mel_power_dense_plain(
         return rnd(re * re + im * im) @ FB
 
 
+def mel_power_dense_split_plain(
+    y_padded: torch.Tensor,
+    scale: torch.Tensor | None,
+    cfg: MelConfig,
+    num_frames: int,
+    *,
+    first_frame: int = 0,
+    exact: bool = True,
+    sums: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain PyTorch version of the dense kernel's arithmetic
+    (``csrc/mel_power_dense.cu``). ``exact``: the scaled frames and the
+    bases are split into bf16 (hi, lo) pairs and re | im = f_hi·C_hi +
+    f_hi·C_lo + f_lo·C_hi (passes in that order, as one product over the
+    operands stacked along K); the f32 power is split again and
+    mel = p_hi·F_hi + p_hi·F_lo + p_lo·F_hi. ``exact=False``: one pass over
+    bf16(frames), the bf16 bases, bf16(p) and the bf16 filterbank, the
+    rounding points of :func:`mel_power_dense_plain` ``(exact=False)``. Every
+    product is of two bf16 values and exact in f32; the sums are f32, or f64
+    with ``sums=torch.float64`` (rounding points unchanged)."""
+    C, S, FB = (tuple(t.to(y_padded.device, sums) for t in m)
+                for m in _dense_split_tables(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax, exact))
+    frames = frames_of_padded(apply_rms_scale(y_padded, scale), n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+                              num_frames=num_frames, first_frame=first_frame)
+
+    def operand(a):  # [a_hi a_hi a_lo], or bf16(a) in the bf16 mode
+        hi, lo = (t.to(sums) for t in _split_bf16(a))
+        return torch.cat([hi, hi, lo] if exact else [hi], -1)
+
+    def stack(m):  # (m_hi; m_lo; m_hi) along K, or m_hi
+        return torch.cat([m[0], m[1], m[0]] if exact else [m[0]], 0)
+
+    with exact_f32():
+        f = operand(frames)
+        re, im = f @ stack(C), f @ stack(S)
+        return (operand(re * re + im * im) @ stack(FB)).float()
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(name: str):
     """A kernel library, built at first use, with its C signatures bound."""
@@ -547,17 +640,39 @@ def _lib(name: str):
         "mel_power_ct": [vp, i64, vp, vp, vp, vp, vp, vp, vp, *[i32] * 9, vp],
         # y, L, scale, rhs_frag, fb_frag, win, wr, out, B, T, frame0, pad_l, n_fft, hop, n_mels, bf16, stream
         "mel_power_ct_split": [vp, i64, vp, vp, vp, vp, vp, vp, *[i32] * 8, vp],
-        # y, L, scale, C, S, FB, out, B, T, frame0, pad_l, n_fft, hop, n_mels, n_freq_pad, bf16, stream
-        "mel_power_dense": [vp, i64, vp, vp, vp, vp, vp, *[i32] * 9, vp],
+        # y, L, scale, basis_frag, fb_frag, out, B, T, frame0, pad_l, n_fft, hop, n_mels, tf, ksteps,
+        # stages, bf16, stream
+        "mel_power_dense": [vp, i64, vp, vp, vp, vp, *[i32] * 11, vp],
     }[source]
     launch.restype = i32
     smem = getattr(lib, f"{source}_smem_bytes")
-    smem.argtypes = [i32, i32]
+    smem.argtypes = [i32] * (6 if source == "mel_power_dense" else 2)
     smem.restype = i64
     return lib
 
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block can use
+# the dense kernel's (frames a block, k16 steps a ring buffer, ring buffers),
+# in the order it prefers them: the most frames a block (each base tile comes
+# from L2 once for all of them) with the wide ring, then fewer frames, and
+# last a small ring that keeps a long audio window within shared memory
+DENSE_TILES = ((128, 4, 3), (64, 4, 3), (32, 4, 3), (16, 4, 3), (16, 1, 2))
+
+
+def dense_smem_bytes(n_fft: int, hop: int, tile: tuple, exact: bool) -> int:
+    """Shared memory (bytes) of the dense kernel with ``tile``: the ring of
+    fragment buffers and the bf16 audio planes (hi and lo with ``exact``) of
+    (frames - 1)·hop + n_fft samples, n_fft rounded up to ``DENSE_KC``; the
+    host's copy of ``mel_power_dense_smem_bytes``."""
+    tf, ksteps, stages = tile
+    parts = 2 if exact else 1
+    n_aud = (tf - 1) * hop + -(-n_fft // DENSE_KC) * DENSE_KC
+    return stages * ksteps * (DENSE_FT // 8) * parts * 512 + parts * 2 * (-(-n_aud // 8) * 8)
+
+
+def dense_tile(n_fft: int, hop: int, exact: bool) -> tuple | None:
+    """The first of ``DENSE_TILES`` whose shared memory fits a block, or None."""
+    return next((t for t in DENSE_TILES if dense_smem_bytes(n_fft, hop, t, exact) <= SMEM_LIMIT), None)
 
 
 def mel_power(
@@ -576,8 +691,10 @@ def mel_power(
     """[B, L] f32 waveforms -> mel power [B, num_frames, n_mels] f32 of the
     centred frames first_frame .. first_frame + num_frames − 1.
 
-    ``exact``: full-f32 arithmetic; False is the bf16 mode (one bf16 pass per
-    product, f32 sums). ``algorithm``: "ct" (Cooley–Tukey, n_fft a >= 2
+    ``exact``: the exact tier — f32 arithmetic, or the bf16×3 split on the
+    tensor cores (the dense kernel, ``fused_dots``), within 2e-5 of a row's
+    max from it; False is the bf16 mode (one bf16 pass per product, f32
+    sums). ``algorithm``: "ct" (Cooley–Tukey, n_fft a >= 2
     multiple of 128 and hop % 32 == 0), "dense" (windowed-DFT bases,
     hop % 16 == 0) or "auto" (ct where it can). ``first_frame``: the
     crop-first frontend computes only the frames that survive its crop.
@@ -655,16 +772,24 @@ def mel_power(
     source = "mel_power_dense" if algorithm == "dense" else "mel_power_ct_split" if fused_dots else "mel_power_ct"
     # ablated instantiations live in libraries of their own: the serving library holds none
     lib = _lib(ablate_library(mask) if mask else source)
-    smem = getattr(lib, f"{source}_smem_bytes")(cfg.n_fft, cfg.hop_length)
-    if smem > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"n_fft={cfg.n_fft}, hop={cfg.hop_length} needs {smem} B of shared memory"
-        )
-    tables = _tables(cfg, y.device, "ct_frag" if fused_dots else algorithm, exact)
-    out = torch.empty((B, num_frames, cfg.n_mels), device=y.device, dtype=torch.float32)
     shape = [cfg.n_fft, cfg.hop_length, cfg.n_mels]
     if algorithm == "dense":
-        shape.append(tables[0].shape[1])  # n_freq_pad
+        tile = dense_tile(cfg.n_fft, cfg.hop_length, exact)
+        if tile is None:
+            raise NotImplementedError(
+                f"n_fft={cfg.n_fft}, hop={cfg.hop_length} needs "
+                f"{dense_smem_bytes(cfg.n_fft, cfg.hop_length, DENSE_TILES[-1], exact)} B of shared memory"
+            )
+        shape += tile
+    else:
+        smem = getattr(lib, f"{source}_smem_bytes")(cfg.n_fft, cfg.hop_length)
+        if smem > SMEM_LIMIT:
+            raise NotImplementedError(
+                f"n_fft={cfg.n_fft}, hop={cfg.hop_length} needs {smem} B of shared memory"
+            )
+    tables = _tables(cfg, y.device, "ct_frag" if fused_dots else "dense_frag" if algorithm == "dense" else algorithm,
+                     exact)
+    out = torch.empty((B, num_frames, cfg.n_mels), device=y.device, dtype=torch.float32)
     mode = [int(not exact)] + ([mask] if source == "mel_power_ct" else [])
     with torch.cuda.device(y.device):
         err = getattr(lib, f"{source}_launch")(

@@ -10,9 +10,10 @@ failure exits non-zero):
    each row against its own max, with a silent and a clipping row: the
    Cooley-Tukey kernel exact (``DEFAULT_MEL``, R = 2), in its bf16 mode (full
    range and the fast tier's frame range), at hop 320 / 160 / 96; the dense
-   kernel exact and bf16 at hop 240 and at a small config. The bf16
-   Cooley-Tukey cases are also held to the plain version with f64 sums, to
-   show where their differences come from;
+   kernel exact and bf16 at hop 240 and at n_fft 400 / hop 80, against the
+   plain version of its split arithmetic and, exact, against plain f32. The
+   bf16 Cooley-Tukey cases and the dense cases are also held to their plain
+   version with f64 sums, to show where their differences come from;
 3. drive the main paths — ``EncoderSession.encode_paths`` and
    ``detect_species`` on six WAVs — with the kernels' launch counts set to 0
    just before each and read just after: the parity and balanced tiers at
@@ -22,7 +23,8 @@ failure exits non-zero):
    decisions must agree, and no serving path may launch the split kernel;
 4. time ``encode_array`` (chunks/s, balanced and fast tier), each kernel, its
    plain version, its bound and one PyTorch library call computing the same
-   function;
+   function (the exact dense kernel at B = 256, the shape of earlier runs, and
+   at B = 1024);
 5. the kernel study, after every serving phase so that those run as they did
    before it existed: hold the split-bf16 tensor-core kernel
    (``fused_dots=True``) to its plain version, exact and bf16, at
@@ -39,8 +41,11 @@ failure exits non-zero):
    device line.
 
 ``--dense-checkpoints`` is a diagnostic: it also times the dense kernel between
-the phases and, last, with its tables uploaded again at other addresses, and
-prints each time beside the addresses (``[dense-checkpoint]`` lines).
+the phases and, last, with its fragment tables uploaded again at other
+addresses, and prints each time beside the addresses (``[dense-checkpoint]``
+lines); and then the exact dense kernel at hops whose row stride in its staged
+window gives 2-, 4- and 8-way ``ldmatrix`` bank conflicts (``[dense-strides]``
+lines).
 """
 
 from __future__ import annotations
@@ -62,12 +67,12 @@ import torch
 # H100 SXM published peaks (NVIDIA data sheet, dense rates): FP32 outside the
 # tensor cores, bf16 on them, and HBM3 bandwidth. A kernel is bounded at the
 # peak of the type it multiplies in: the FP32 FFMA kernels' exact modes at the
-# FP32 rate; every bf16 mode, and both modes of the split kernel (each product
-# has bf16 operands, f32 sums), at the bf16 rate, the split kernel's exact mode
-# with the function's least work counted once for each of its three passes
-# (hi*hi, hi*lo, lo*hi). The scale, window and power steps stay f32 but are
-# under a tenth of the work; taking the whole at the bf16 rate can only lower
-# the bound.
+# FP32 rate; every bf16 mode, and both modes of the split kernel and of the
+# dense kernel (each product has bf16 operands, f32 sums), at the bf16 rate,
+# their exact modes with the function's least work counted once for each of
+# the three passes (hi*hi, hi*lo, lo*hi). The scale, window and power steps
+# stay f32 but are under a tenth of the work; taking the whole at the bf16 rate
+# can only lower the bound.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -178,11 +183,17 @@ def ct_split_flops(cfg, B: int, T: int, exact: bool) -> float:
     return 2.0 * fma * B * T
 
 
-def dense_gemm_flops(cfg, B: int, T: int) -> float:
-    """FP32 flops the dense kernel's form does (frames against both padded
-    bases, then the padded filterbank): its own work, not its bound."""
-    n_freq_pad = -(-(cfg.n_fft // 2 + 1) // 128) * 128
-    return 2.0 * (2 * cfg.n_fft * n_freq_pad + n_freq_pad * cfg.n_mels) * B * T
+def dense_mma_flops(cfg, B: int, T: int, exact: bool) -> float:
+    """Tensor-core flops the dense kernel's form does: frames against both
+    bases (K = n_fft rounded up to 64, frequencies to 16), then the power
+    against the filterbank (mels rounded up to 8), three passes in the exact
+    mode; its own work, not its bound."""
+    from anuraxla_torch.ops.mel_kernel import DENSE_KC
+
+    k_pad = -(-cfg.n_fft // DENSE_KC) * DENSE_KC
+    n_freq_pad = -(-(cfg.n_fft // 2 + 1) // 16) * 16
+    per_pass = 2 * k_pad * n_freq_pad + n_freq_pad * 8 * -(-cfg.n_mels // 8)
+    return 2.0 * (3 if exact else 1) * per_pass * B * T
 
 
 def phase_build() -> None:
@@ -315,7 +326,7 @@ def phase_kernel_vs_plain(cases, rng) -> dict:
         if case.fused:
             plain = mk.mel_power_ct_fused_plain
         elif case.algorithm == "dense":
-            plain = mk.mel_power_dense_plain
+            plain = mk.mel_power_dense_split_plain
         else:
             plain = functools.partial(mk.mel_power_ct_plain, ablate=case.ablate)
         ref = plain(x_padded, s, cfg, T, first_frame=first, exact=exact)
@@ -335,9 +346,10 @@ def phase_kernel_vs_plain(cases, rng) -> dict:
             f"max|diff|={abs_err:.3e}; of each row's max: worst {worst:.3e} (tol {tol}), "
             f"mean {mean:.3e} (tol {REL_TOL}), share above {REL_TOL}: {float((rel > REL_TOL).float().mean()):.4f} "
             f"(silent row {float(per_row[0]):.3e}, clipping row {float(per_row[1]):.3e})")
-        if case.fused or (case.algorithm == "ct" and not exact and not case.ablate):
+        split = case.fused or case.algorithm == "dense"  # the bf16 hi/lo tensor-core kernels
+        if split or (not exact and not case.ablate):
             # where the differences come from: the same rounding points with
-            # f64 sums. For the split kernel this is the tensor cores' f32
+            # f64 sums. For the split kernels this is the tensor cores' f32
             # accumulation against an exact sum of the same bf16 products
             ref64 = plain(x_padded, s, cfg, T, first_frame=first, exact=exact, sums=torch.float64)
             vs64 = {n: row_rel(v, ref64) for n, v in (("kernel", got), ("plain", ref))}
@@ -347,10 +359,11 @@ def phase_kernel_vs_plain(cases, rng) -> dict:
             del ref64, vs64
         if not (worst <= tol and mean <= REL_TOL):
             failures.append(f"{what}: kernel disagrees with plain version (worst {worst:.3e}, mean {mean:.3e})")
-        if case.fused and exact:
+        if split and exact:
             # the split scheme must hold the exact tier's gate against plain
             # f32 arithmetic too (this also catches a fault in the shared tables)
-            f32 = mk.mel_power_ct_plain(x_padded, s, cfg, T, first_frame=first)
+            f32 = (mk.mel_power_ct_plain if case.fused else mk.mel_power_dense_plain)(
+                x_padded, s, cfg, T, first_frame=first)
             vs_f32 = row_rel(got, f32)
             log(f"[kernel-vs-plain]   against the plain f32 version (no split), of each row's max: "
                 f"worst {float(vs_f32.max()):.3e} (tol {REL_TOL}), mean {float(vs_f32.mean()):.3e}")
@@ -599,9 +612,10 @@ def library_mel(cfg, raw: torch.Tensor, first: int, T: int, fb: torch.Tensor, wi
 
 
 def time_kernel(kernel: str, label: str, B: int, rng, *, exact: bool, algorithm: str,
-                fast: bool, pre_padded: bool, iters: int, fused: bool = False) -> dict:
-    """Kernel, plain version, library call (CUDA events) and the bound, at
-    one config and batch."""
+                fast: bool, pre_padded: bool, iters: int, fused: bool = False, plain: bool = True) -> dict:
+    """Kernel, plain version (``plain=False``: not timed, where its operands
+    would not fit the card), library call (CUDA events) and the bound, at one
+    config and batch."""
     from anuraxla_torch.ops import mel_kernel as mk
     from anuraxla_torch.ops.mel import mel_filterbank
     from anuraxla_torch.probes.common import cuda_ms
@@ -610,35 +624,42 @@ def time_kernel(kernel: str, label: str, B: int, rng, *, exact: bool, algorithm:
     x, x_padded, s, first, T = kernel_inputs(cfg, B, rng, fast=fast, pre_padded=pre_padded)
     ms = cuda_ms(lambda: mk.mel_power(x, cfg, num_frames=T, first_frame=first, rms_scale=s, pre_padded=pre_padded,
                                       exact=exact, algorithm=algorithm, fused_dots=fused), iters=iters)
-    plain = (mk.mel_power_ct_fused_plain if fused else mk.mel_power_ct_plain if algorithm == "ct"
-             else mk.mel_power_dense_plain)
-    plain_ms = cuda_ms(lambda: plain(x_padded, s, cfg, T, first_frame=first, exact=exact), iters=2, warmup=1)
+    plain_fn = (mk.mel_power_ct_fused_plain if fused else mk.mel_power_ct_plain if algorithm == "ct"
+                else mk.mel_power_dense_split_plain)
+    plain_ms = (cuda_ms(lambda: plain_fn(x_padded, s, cfg, T, first_frame=first, exact=exact), iters=2, warmup=1)
+                if plain else None)
     fb_np = mel_filterbank(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
     # samples of a row the frames need: the whole row as given for the full
     # clip, else the frame range's span
     L = x.shape[1] if not fast else (T - 1) * cfg.hop_length + cfg.n_fft
     flops, nbytes = mel_work(cfg, fb_np, B, T, L)
     # the peak of the operands the kernel multiplies: bf16 on the tensor cores
-    # in a bf16 mode and in the split kernel, whose exact mode makes three passes
-    peak, peak_name = (PEAK_BF16_FLOPS, "bf16") if fused or not exact else (PEAK_FP32_FLOPS, "FP32")
-    passes = 3 if fused and exact else 1
+    # in a bf16 mode and in the split and dense kernels, whose exact modes make
+    # three passes
+    split = fused or algorithm == "dense"
+    peak, peak_name = (PEAK_BF16_FLOPS, "bf16") if split or not exact else (PEAK_FP32_FLOPS, "FP32")
+    passes = 3 if split and exact else 1
     flops *= passes
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     if fused:
         own, unit = ct_split_flops(cfg, B, T, exact), "bf16 mma.sync"
+    elif algorithm == "dense":
+        own, unit = dense_mma_flops(cfg, B, T, exact), "bf16 mma.sync"
     else:
-        own, unit = (ct_gemm_flops if algorithm == "ct" else dense_gemm_flops)(cfg, B, T), "FP32 FFMA"
+        own, unit = ct_gemm_flops(cfg, B, T), "FP32 FFMA"
 
     off = cfg.n_fft // 2
     raw = x[:, off : off + cfg.num_samples] if pre_padded else x
     win = torch.hann_window(cfg.n_fft, periodic=True, device="cuda")
     fb = torch.from_numpy(fb_np).cuda()
     library_ms = cuda_ms(lambda: library_mel(cfg, raw, first, T, fb, win), iters=5)
-    tables = mk._tables(cfg, x.device, "ct_frag" if fused else algorithm, exact)
+    tables = mk._tables(cfg, x.device, "ct_frag" if fused else "dense_frag" if algorithm == "dense" else algorithm,
+                        exact)
+    plain_txt = f"{plain_ms:.3f} ms" if plain else "not timed"
     log(f"[times] {kernel} {label} B={B} frames {first}..{first + T - 1}: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, library(torch.stft) {library_ms:.3f} ms (kernel/library {ms / library_ms:.2f}x), "
+        f"plain {plain_txt}, library(torch.stft) {library_ms:.3f} ms (kernel/library {ms / library_ms:.2f}x), "
         f"bound {bound_ms:.3f} ms by {bound_by} (function's least work: {flops / 1e9:.2f} GFLOP "
         f"{'x 3 passes ' if passes == 3 else ''}-> {t_ops:.3f} ms at the {peak_name} peak, {nbytes / 1e9:.3f} GB -> {t_bytes:.3f} ms) = {100 * bound_ms / ms:.2f}% of bound; "
         f"the kernel's own form does {own / 1e12:.3f} TFLOP = {own / ms / 1e9:.2f} TFLOP/s on {unit}; "
@@ -650,11 +671,13 @@ def time_kernel(kernel: str, label: str, B: int, rng, *, exact: bool, algorithm:
 def dense_checkpoint(where: str, shift_mb: int | None = None) -> None:
     """Diagnostic (``--dense-checkpoints``): the dense kernel's time at this
     point of the run, at the shape it is timed at, on rows of its own, with
-    the device addresses of its tables and rows. The kernel streams its two
-    9.4 MB bases from L2 for every block, so its time can depend on where the
-    allocator put them, which depends on everything the process did before.
-    ``shift_mb``: first drop the tables from the device and hold that many MB,
-    so that they are uploaded again somewhere else."""
+    the device addresses of its tables and rows. Every block streams the
+    kernel's 17.0 MB of exact-mode basis fragments from L2 (the FP32 kernel it
+    replaced read its two 9.4 MB bases, and its time followed where the
+    allocator put them), so its time can depend on where they lie, which
+    depends on everything the process did before. ``shift_mb``: first drop the
+    tables from the device and hold that many MB, so that they are uploaded
+    again somewhere else."""
     from anuraxla_torch.ops import mel_kernel as mk
     from anuraxla_torch.probes.common import cuda_ms
 
@@ -666,11 +689,32 @@ def dense_checkpoint(where: str, shift_mb: int | None = None) -> None:
         hold = torch.empty(shift_mb << 20, dtype=torch.uint8, device="cuda")
     x = torch.from_numpy(test_rows(cfg, TIMING_B // 4, np.random.default_rng(240))).cuda()
     ms = cuda_ms(lambda: mk.mel_power(x, cfg, num_frames=cfg.total_frames, algorithm="dense"), iters=3)
-    tabs = mk._tables(cfg, x.device, "dense", True)
-    log(f"[dense-checkpoint] {where}: mel_power_dense hop240 B={TIMING_B // 4} {ms:.3f} ms; C, S, FB at "
+    tabs = mk._tables(cfg, x.device, "dense_frag", True)
+    log(f"[dense-checkpoint] {where}: mel_power_dense hop240 B={TIMING_B // 4} {ms:.3f} ms; bases, FB at "
         f"{[hex(t.data_ptr()) for t in tabs]}, rows at {hex(x.data_ptr())}; "
         f"{torch.cuda.memory_allocated() >> 20} MB allocated, {torch.cuda.memory_reserved() >> 20} MB reserved")
     del x, hold
+
+
+def dense_strides() -> None:
+    """Diagnostic (``--dense-checkpoints``): the exact dense kernel at n_fft 2048
+    on the same number of frames (B = 256 x 626), at hops whose row stride
+    in the staged bf16 window (2 * hop bytes) puts the eight row addresses of
+    one ``ldmatrix`` phase on 2, 4 or 8 ways of a bank: only the window's
+    length and its bank conflicts differ."""
+    from anuraxla_torch.constants import DEFAULT_MEL
+    from anuraxla_torch.ops import mel_kernel as mk
+    from anuraxla_torch.probes.common import cuda_ms
+
+    T, B = 626, TIMING_B // 4
+    for hop in (240, 208, 224, 192):  # each at 128 frames a block
+        cfg = DEFAULT_MEL.replace(hop_length=hop)
+        ways = 8 // len({(r * 2 * hop // 16) % 8 for r in range(8)})
+        x = torch.from_numpy(test_rows(cfg, B, np.random.default_rng(hop))).cuda()
+        ms = cuda_ms(lambda: mk.mel_power(x, cfg, num_frames=T, algorithm="dense"), iters=3)
+        log(f"[dense-strides] hop {hop} (row stride {2 * hop} B, {ways}-way ldmatrix phases), "
+            f"tile {mk.dense_tile(cfg.n_fft, hop, True)}: mel_power_dense B={B} x {T} frames {ms:.3f} ms")
+        del x
 
 
 def phase_times(seed: int, rng, profile: bool = False, checkpoint=lambda where: None) -> dict:
@@ -748,9 +792,12 @@ def phase_times(seed: int, rng, profile: bool = False, checkpoint=lambda where: 
     out["mel_power_ct_hop32"] = time_kernel("mel_power_ct_hop32", "hop320", B, rng, exact=True,
                                             algorithm="ct", fast=False, pre_padded=False, iters=5)
     checkpoint("after the ct kernels' timings")
-    # the dense form does ~150x the function's least work: timed at a quarter of the batch
+    # the dense form does ~135x the function's least work: the kernels line keeps a
+    # quarter of the batch, the shape of earlier runs; the whole batch is timed too
     out["mel_power_dense"] = time_kernel("mel_power_dense", "hop240", B // 4, rng, exact=True,
                                          algorithm="dense", fast=False, pre_padded=False, iters=3)
+    time_kernel("mel_power_dense", "hop240", B, rng, exact=True, algorithm="dense", fast=False,
+                pre_padded=False, iters=3, plain=False)
     out["mel_power_dense_bf16"] = time_kernel("mel_power_dense_bf16", "hop240", B, rng, exact=False,
                                               algorithm="dense", fast=True, pre_padded=False, iters=3)
     checkpoint("after the dense kernels' timings")
@@ -773,9 +820,10 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also print torch.profiler's kernel table for one B=1024 forward of each tier")
     ap.add_argument("--dense-checkpoints", nargs="?", const="", default=None, metavar="WHICH",
-                    help="diagnostic: also time the dense kernel after every phase, and last with its tables "
-                         "uploaded again at other addresses; prints [dense-checkpoint] lines. WHICH keeps only "
-                         "the checkpoints whose name holds it (each one moves the allocator for the next)")
+                    help="diagnostic: also time the dense kernel after every phase, with its tables uploaded "
+                         "again at other addresses, and at hops whose window row stride gives 2-, 4- and 8-way "
+                         "ldmatrix bank conflicts; prints [dense-checkpoint] and [dense-strides] lines. WHICH "
+                         "keeps only the checkpoints whose name holds it (each one moves the allocator for the next)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -804,6 +852,8 @@ def main() -> None:
     times = phase_times(args.seed, rng, args.profile, checkpoint)
     for mb in (0, 2, 6, 10, 22, 50):
         checkpoint(f"tables uploaded again behind {mb} MB held", shift_mb=mb)
+    if args.dense_checkpoints is not None:
+        dense_strides()
     study_rng = np.random.default_rng([args.seed, 3])
     errors.update(phase_kernel_vs_plain(STUDY_CASES, study_rng))
     launches.update(phase_study_path())

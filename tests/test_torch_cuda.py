@@ -126,6 +126,50 @@ def test_new_kernels_and_modes_match_plain(card, cfg, algorithm, exact, fast, co
         assert torch.equal(got, full[:, first:])
 
 
+DENSE_TILE_CASES = [
+    # (config, exact, the tile dense_tile picks: frames a block, k16 steps a ring buffer, buffers)
+    (DENSE, True, (128, 4, 3)),
+    (dict(R16, hop_length=496, duration=1.0), True, (64, 4, 3)),
+    (dict(R16, hop_length=1008, duration=2.0), True, (32, 4, 3)),
+    (dict(R16, hop_length=1744, duration=2.0), True, (16, 4, 3)),
+    (dict(R16, hop_length=2112, duration=2.0), True, (16, 1, 2)),  # frames apart, a small ring
+    (dict(R16, hop_length=1744, duration=2.0), False, (32, 4, 3)),
+    (dict(R16, hop_length=1008, duration=2.0), False, (64, 4, 3)),
+    (dict(DENSE_ODD, n_mels=20), False, (128, 4, 3)),  # a ragged mel tile
+]
+
+
+@pytest.mark.parametrize("cfg,exact,tile", DENSE_TILE_CASES,
+                         ids=[f"{i}-{'exact' if m[1] else 'bf16'}-tf{m[2][0]}" for i, m in enumerate(DENSE_TILE_CASES)])
+def test_dense_kernel_every_tile_matches_split_plain(card, cfg, exact, tile):
+    """The dense kernel at each of its tiles (forced by the config's shared
+    memory) against the plain version of its split arithmetic, on a frame
+    range; the exact mode also against plain f32. The kernel's shared memory
+    is the host's formula for every tile."""
+    cfg = MelConfig(**cfg)
+    assert tk.dense_tile(cfg.n_fft, cfg.hop_length, exact) == tile
+    lib = tk._lib("mel_power_dense")
+    for t in tk.DENSE_TILES:
+        want = tk.dense_smem_bytes(cfg.n_fft, cfg.hop_length, t, exact)
+        assert lib.mel_power_dense_smem_bytes(cfg.n_fft, cfg.hop_length, *t, int(not exact)) == want
+    x = torch.from_numpy(_rows(cfg, 3, seed=9)).to(card)
+    s = tfe.rms_scale_batch(x)
+    first, T = 1, cfg.total_frames - 2
+    counter = "mel_power_dense" if exact else "mel_power_dense_bf16"
+    n0 = _launches()
+    got = tk.mel_power(x, cfg, num_frames=T, first_frame=first, rms_scale=s, exact=exact, algorithm="dense")
+    assert _launches() == dict(n0, **{counter: n0[counter] + 1})
+    centred = torch.nn.functional.pad(x, (cfg.n_fft // 2, cfg.n_fft // 2))
+    ref = tk.mel_power_dense_split_plain(centred, s, cfg, T, first_frame=first, exact=exact)
+    assert got.shape == ref.shape == (3, T, cfg.n_mels) and torch.isfinite(got).all()
+    rel = (got - ref).abs() / ref.abs().amax(dim=(1, 2), keepdim=True)
+    assert float(rel.max()) <= (2e-5 if exact else 3e-3), rel.amax(dim=(1, 2))
+    assert float(rel.mean()) <= 2e-5
+    if exact:
+        f32 = tk.mel_power_dense_plain(centred, s, cfg, T, first_frame=first)
+        assert float(((got - f32).abs() / f32.abs().amax(dim=(1, 2), keepdim=True)).max()) <= 2e-5
+
+
 FUSED = [
     # (config, exact, fast frame range, pre-padded rows)
     (R16, True, False, True),
