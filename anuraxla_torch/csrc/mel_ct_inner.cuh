@@ -1,9 +1,11 @@
 // Shared by the Cooley-Tukey mel kernels (mel_power_ct.cu,
 // mel_power_ct_split.cu): the inner stage
 //   A_r[n2] = sum_n1 win[n1*128 + n2] * x[n1*128 + n2] * W_R^(n1*r),  r <= R/2
-// over the staged audio window of a tile of TF frames, in f32. A block of
-// 512 threads covers n2 = threadIdx.x % 128 for the frames tsub + 4i,
-// tsub = threadIdx.x / 128. Each function hands its planes to `store(k, t,
+// over the staged audio window of a tile of TF frames, in f32. Thread
+// threadIdx.x covers n2 = threadIdx.x % 128 for the frames tsub + 4i,
+// tsub = threadIdx.x / 128: a block of 512 threads covers every frame, one of
+// 256 calls it twice, on the window and on the window two frames on. Each
+// function hands its planes to `store(k, t,
 // value)`, plane k of the group at frame t (and the caller's n2); the caller
 // decides where and in which type a plane lives. `store` is a struct with a
 // __forceinline__ operator(), not a lambda: everything here must be inlined

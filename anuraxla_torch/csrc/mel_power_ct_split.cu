@@ -6,8 +6,8 @@
 // the host tables `_ct_tables_folded_cat` (:197-264), as `mel_power_pallas`
 // (:904) reaches it through the phase kernel (:1148, `fused=` :1096-1119) and
 // the stack kernel (:1291, `fused` :1209). It ports that arithmetic, not its
-// blocks. The function is the one of mel_power_ct.cu (same staging, fused
-// RMS scale and clip, window and f32 inner stage, through mel_stage.cuh and
+// blocks. The function is the one of mel_power_ct.cu (fused RMS scale and
+// clip, window and f32 inner stage, through mel_stage.cuh and
 // mel_ct_inner.cuh; any hop % 32, `frame0`, `pad_l`). The outer stage differs:
 //
 //   exact   each inner plane a is split hi = bf16(a), lo = bf16(a - hi);
@@ -22,8 +22,8 @@
 //           p rounded once, mel += bf16(p) @ F_hi.
 // Every product is of two bf16 values and exact in f32; sums are f32.
 //
-// Design. One block of 512 threads owns one row and a tile of TF = 32 frames,
-// as mel_power_ct.cu. The inner stage writes the hi and lo planes of a group
+// Design. One block of 512 threads owns one row and a tile of TF = 32 frames.
+// The inner stage writes the hi and lo planes of a group
 // of r to shared memory once, as bf16. The concatenation the TPU kernel
 // materialises along lanes is never formed: the K loop reads segment s from
 // plane (hi, hi, lo)[s], and the hi fragments serve both of their segments.
@@ -277,7 +277,7 @@ mel_power_ct_split_kernel(Params p) {
   const float s = p.scale != nullptr ? p.scale[b] : -1.f;
 
   // the window and the inner stage run in f32 in both modes
-  stage_audio<false>(aud, n_aud, yrow, p.L,
+  stage_audio(aud, n_aud, yrow, p.L,
                      (long long)(p.frame0 + t_base) * p.hop, p.pad_l, s);
   __syncthreads();
 

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``anuraxla_torch/_build/lib<name>-<hash>.so``,
 keyed by the content of the source and of the ``*.cuh`` headers beside it)
 and loaded with ``ctypes`` at first use; ``build`` compiles several libraries
-at once, one ``nvcc`` each. ``VARIANTS`` names libraries built from another
+at once, one ``nvcc`` each, as many at a time as the host has cores.
+``VARIANTS`` names libraries built from another
 library's source with extra ``-D`` flags: the ablated instantiations of the
 Cooley–Tukey kernel, one small library a mask, kept out of the serving library
 and built only when a profiling run asks for that mask. Only
@@ -34,7 +35,7 @@ NVCC_FLAGS = [
 
 # library -> (source it is built from, extra nvcc flags)
 VARIANTS = {f"mel_power_ct_ablate{mask}": ("mel_power_ct", (f"-DMEL_POWER_CT_ABLATE={mask}",))
-            for mask in range(1, 16)}
+            for mask in range(1, 64)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -76,26 +77,31 @@ def sources() -> list[str]:
 
 def build(names: Iterable[str]) -> None:
     """Build the libraries of ``names`` that are missing: one ``nvcc`` for
-    each source, all started together. Raises if any build fails."""
+    each library, as many at once as the host has cores. Raises if any
+    build fails."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = []
-    for name in names:
+    todo = [name for name in dict.fromkeys(names) if not lib_path(name).exists()]
+    running, failed = [], []
+
+    def finish(name, out, tmp, proc):
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{log}")
+            return
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)  # atomic: a reader never sees half a file
+
+    for name in todo:
+        if len(running) >= (os.cpu_count() or 1):
+            finish(*running.pop(0))
         out = lib_path(name)
-        if out.exists():
-            continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen([nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{source_of(name)}.cu")],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, out, tmp, proc))
-    failed = []
-    for name, out, tmp, proc in running:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}:\n{log}")
-            continue
-        out.with_suffix(".log").write_text(log)
-        os.replace(tmp, out)  # atomic: a reader never sees half a file
+    for job in running:
+        finish(*job)
     if failed:
         raise RuntimeError("\n".join(failed))
 

@@ -14,13 +14,17 @@ three TPU kernels and ``mel_power_pallas``, the function that selects one.
 - ``ct_tables_folded_cat``: the concatenated-operand tables of the
   reference's ``_ct_tables_folded_cat`` (``fused_dots=True``), bitwise, and
   ``ct_fragment_tables``: the same values in the order the tensor cores'
-  ``mma`` fragments read them. ``dense_fragment_tables``: ``dense_tables``
+  ``mma`` fragments read them. ``ct_split_fragment_tables``: ``ct_tables_folded``
+  split into bf16 (hi, lo) pairs (or rounded to bf16), each stored once, in
+  the Cooley–Tukey kernel's fragment order; ``ct_tile``: its frame tile.
+  ``dense_fragment_tables``: ``dense_tables``
   split into bf16 (hi, lo) pairs (or rounded to bf16) in the dense kernel's
   fragment order; ``dense_tile``: the dense kernel's frame tile and ring.
 - ``mel_power_ct_plain`` / ``mel_power_ct_fused_plain`` /
   ``mel_power_dense_plain``: the plain PyTorch versions of the kernels' math,
-  exact and bf16; ``mel_power_dense_split_plain``: the dense kernel's split
-  arithmetic (bf16×3 in the exact mode), against which the card holds it.
+  exact and bf16; ``mel_power_ct_split_plain`` / ``mel_power_dense_split_plain``:
+  the Cooley–Tukey and dense kernels' split arithmetic (bf16×3 in the exact
+  mode), against which the card holds them.
 - ``mel_power``: the wrapper. On a CUDA tensor it launches a hand-written
   Hopper kernel (``csrc/mel_power_ct.cu``, ``csrc/mel_power_ct_split.cu`` or
   ``csrc/mel_power_dense.cu``) or raises; it takes a plain version only for a
@@ -43,12 +47,14 @@ name                   algorithm  exact  config
 
 The first three are one source (``mel_power_ct.cu``): on this card a frame
 is read at any sample offset, so the reference's separate kernel for
-hop % 128 != 0 needs no code of its own. Both dense modes run on the tensor
-cores (``csrc/mel_power_dense.cu``); the exact one is the bf16×3 split.
+hop % 128 != 0 needs no code of its own. Every kernel runs on the tensor
+cores; every exact mode is the reference's bf16×3 split (``mel_power_ct.cu``:
+the reference's ``_ct_outer_stage``; ``csrc/mel_power_dense.cu``: the dense
+kernel's).
 ``fused_dots=True`` is the kernel-study variant (``csrc/mel_power_ct_split.cu``):
 the outer stage as one deep product per r over bf16 hi/lo split operands, on
 the tensor cores.
-``ablate=`` (profiling only, wrong output by design) drops one class of work
+``ablate=`` (profiling only, wrong output by design) drops classes of work
 from the Cooley–Tukey kernel at hop % 128 == 0; its launches count under the
 kernel's own name.
 
@@ -296,6 +302,33 @@ def ct_fragment_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: floa
 
 
 @functools.lru_cache(maxsize=8)
+def ct_split_fragment_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, exact: bool):
+    """(rhs_frag, fb_frag) int32 tensors: the folded C, S and merged FBM of
+    :func:`ct_tables_folded` split into bf16 (hi, lo) pairs (``exact``) or
+    rounded to bf16 (the ``hi`` alone, bitwise :func:`ct_tables_bf16`), each
+    stored once, in the order ``csrc/mel_power_ct.cu``'s ``mma.sync.m16n8k16``
+    B fragments read them.
+
+    ``rhs_frag`` [(R//2+1)·8, 16, parts, 32, 4]: k16 step s of block r at
+    s + 8r (K = n2), n8 group j of q, part (hi, lo) or (hi,); lane 4g + c
+    holds column q = 8j + g — words 0, 1 of C's fragment, then 2, 3 of S's —
+    so one 16-byte load a lane feeds the x_re and x_im products of the same
+    bins. ``fb_frag`` [(R//2+1)·8, ceil(n_mels/8), 32, 2·parts]: FBM's
+    fragments (K = q), hi words then lo words, the mel columns zero-padded to
+    a multiple of 8."""
+    C, S, FBM, _ = (torch.from_numpy(a) for a in ct_tables_folded(sr, n_fft, n_mels, fmin, fmax))
+    parts = 2 if exact else 1
+    Cp, Sp, Fp = (tuple(t.to(torch.bfloat16) for t in _split_bf16(m))[:parts] for m in (C, S, FBM))
+    groups = range(0, 128, 8)
+    rhs = torch.stack([torch.cat([_mma_b_fragments(c, groups), _mma_b_fragments(s, groups)], -1)
+                       for c, s in zip(Cp, Sp)], 2)
+    n_tiles = -(-n_mels // 8)
+    fb = torch.cat([_mma_b_fragments(F.pad(f.float(), (0, 8 * n_tiles - n_mels)).to(torch.bfloat16),
+                                     range(0, 8 * n_tiles, 8)) for f in Fp], -1)
+    return rhs.contiguous(), fb.contiguous()
+
+
+@functools.lru_cache(maxsize=8)
 def dense_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float):
     """(C, S, FB) of the dense kernel as float32 numpy arrays: the windowed
     DFT bases [n_fft, n_freq_pad] and the filterbank [n_freq_pad, n_mels],
@@ -363,8 +396,10 @@ def _tables(cfg: MelConfig, device: torch.device, algorithm: str = "ct", exact: 
     (C, S, FB) as f32 tensors, C/S/FBM/FB holding bf16 values with
     ``exact=False``; "ct_cat": (rhs_real, rhs_cplx, fbcat, win, wr) of
     ``ct_tables_folded_cat`` as f32 tensors; "ct_frag": (rhs_frag, fb_frag,
-    win, wr), the int32 fragment tables of the split kernel; "dense_frag":
-    (basis_frag, fb_frag) of ``dense_fragment_tables``."""
+    win, wr), the int32 fragment tables of the concatenated-operand kernel;
+    "ct_split_frag": (rhs_frag, fb_frag, win, wr) of
+    ``ct_split_fragment_tables``; "dense_frag": (basis_frag, fb_frag) of
+    ``dense_fragment_tables``."""
     return _device_tables(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax, str(device), algorithm, exact)
 
 
@@ -378,6 +413,9 @@ def _device_tables(sr, n_fft, n_mels, fmin, fmax, device: str, algorithm: str, e
         rest = []
     elif algorithm == "dense_frag":
         mats, rest = list(dense_fragment_tables(*args, exact)), []
+    elif algorithm == "ct_split_frag":
+        mats = list(ct_split_fragment_tables(*args, exact))
+        rest = [torch.from_numpy(ct_tables_folded(*args)[3]), torch.from_numpy(inner_weights(n_fft // 128))]
     elif algorithm in ("ct_cat", "ct_frag"):
         win, *cat = ct_tables_folded_cat(*args, exact)
         mats = [t.float() for t in cat] if algorithm == "ct_cat" else list(ct_fragment_tables(*args, exact))
@@ -398,7 +436,8 @@ def apply_rms_scale(y: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor
     return torch.where(s > 0, torch.clamp(y * s, -1.0, 1.0), y)
 
 
-ABLATE_CLASSES = ("window", "inner", "power", "fb")  # bit i of the kernel's mask
+ABLATE_CLASSES = ("window", "inner", "power", "fb", "splits", "dots")  # bit i of the kernel's mask
+EXACT_ONLY_CLASSES = ("splits", "dots")  # the classes of the exact mode's 3-pass split
 
 
 def ablate_mask(ablate: tuple, *, exact: bool = True) -> int:
@@ -407,22 +446,19 @@ def ablate_mask(ablate: tuple, *, exact: bool = True) -> int:
     'window' (no Hann multiply), 'inner' (the inner stage hands block r as
     a_re and block (r+1) % R as a_im), 'power' (p = x_re + x_im, both kept
     live), 'fb' (the first n_mels power columns stand for the filterbank
-    product). Refused, because a silent no-op would fake evidence: 'splits'
-    and 'dots' (this exact mode is one FP32 pass with no split and no extra
-    pass to remove; the reference refuses them too in its bf16 mode) and
-    'shifts' (the misaligned sublane shift it isolates has no counterpart
-    where a frame is read at any sample offset)."""
+    product), and in the exact mode 'splits' (every bf16 split's lo = -hi, a
+    distinct value, so no pass is removed) and 'dots' (one pass per logical
+    product: a_hi·T_hi, and p_hi·F_hi for the filterbank). Refused, because a
+    silent no-op would fake evidence: 'splits' and 'dots' in the bf16 mode
+    (one pass, nothing split: the reference refuses them too) and 'shifts'
+    (the misaligned sublane shift it isolates has no counterpart where a
+    frame is read at any sample offset)."""
     mask = 0
     for cls in ablate:
-        if cls in ("splits", "dots"):
-            if not exact:
-                raise ValueError(
-                    f"ablate class {cls!r} only exists in an exact (3-pass bf16-split) outer "
-                    "stage; the bf16 kernel has no split/multi-pass arithmetic to remove"
-                )
+        if cls in EXACT_ONLY_CLASSES and not exact:
             raise ValueError(
-                f"ablate class {cls!r} is not wired: this exact mode is one FP32 pass, "
-                "with no bf16 split and no extra pass to remove"
+                f"ablate class {cls!r} only exists in an exact (3-pass bf16-split) outer "
+                "stage; the bf16 kernel has no split/multi-pass arithmetic to remove"
             )
         if cls == "shifts":
             raise ValueError(
@@ -437,7 +473,8 @@ def ablate_mask(ablate: tuple, *, exact: bool = True) -> int:
 
 def ablate_library(mask: int) -> str:
     """The library that holds the ablated instantiations of ``mask`` (both
-    modes), built from the ct source the first time the mask is asked for."""
+    modes, or the exact one for a mask with 'splits' or 'dots'), built from
+    the ct source the first time the mask is asked for."""
     return f"mel_power_ct_ablate{mask}"
 
 
@@ -492,10 +529,14 @@ def mel_power_ct_plain(
     ``sums=torch.float64`` takes every product and sum after the scale in
     f64, rounding points unchanged: the value that any order of f32 sums
     approximates, for telling a summation-order difference from a fault.
-    ``ablate``: the classes of :func:`ablate_mask`, dropped as the ablated
-    kernel drops them (wrong output by design)."""
+    ``ablate``: the classes of :func:`ablate_mask` but 'splits' and 'dots',
+    dropped as the ablated kernel drops them (wrong output by design); this
+    exact mode has no split (:func:`mel_power_ct_split_plain` has)."""
     R = cfg.n_fft // 128
     mask = ablate_mask(ablate, exact=exact)
+    if mask >> 4:
+        raise ValueError("ablate classes 'splits' and 'dots' belong to the split arithmetic: "
+                         "use mel_power_ct_split_plain")
     no_window, no_inner, no_power, no_fb = (bool(mask >> i & 1) for i in range(4))
     C, S, FBM, win, _ = (t.to(sums) for t in _tables(cfg, y_padded.device, "ct", exact))
     rnd = (lambda x: x) if exact else (lambda x: round_bf16(x).to(sums))
@@ -514,6 +555,71 @@ def mel_power_ct_plain(
                 x_im = x_im + a_im @ C[sl]
             p = x_re + x_im if no_power else x_re * x_re + x_im * x_im
             contrib = p[..., : cfg.n_mels] if no_fb else rnd(p) @ FBM[sl]
+            acc = contrib if acc is None else acc + contrib
+    return acc.float()
+
+
+def mel_power_ct_split_plain(
+    y_padded: torch.Tensor,
+    scale: torch.Tensor | None,
+    cfg: MelConfig,
+    num_frames: int,
+    *,
+    first_frame: int = 0,
+    exact: bool = True,
+    sums: torch.dtype = torch.float32,
+    ablate: tuple = (),
+) -> torch.Tensor:
+    """Plain PyTorch version of the Cooley–Tukey kernel's arithmetic
+    (``csrc/mel_power_ct.cu``), the reference's ``_ct_outer_stage``. Exact:
+    the inner planes and the tables are split into bf16 (hi, lo) pairs and
+    every product is ``dot3h`` = (hi·hi + hi·lo) + lo·hi, so x_re = a_re·C
+    (+ a_im·S) and x_im = −a_re·S (+ a_im·C); the f32 power is split again
+    and contrib = (p_hi·F_hi + p_hi·F_lo) + p_lo·F_hi. ``exact=False`` is
+    :func:`mel_power_ct_plain` ``(exact=False)``: one pass over the bf16
+    operands. Every product is of two bf16 values and exact; the sums are
+    f32, or f64 with ``sums=torch.float64`` (rounding points unchanged).
+    ``ablate``: every class of :func:`ablate_mask`, as the reference drops
+    it ('splits': lo = −hi; 'dots': hi·hi alone, p_hi·F_hi for the
+    filterbank)."""
+    if not exact:
+        return mel_power_ct_plain(y_padded, scale, cfg, num_frames, first_frame=first_frame, exact=False,
+                                  sums=sums, ablate=ablate)
+    R = cfg.n_fft // 128
+    mask = ablate_mask(ablate, exact=True)
+    no_window, no_inner, no_power, no_fb, splits, dots = (bool(mask >> i & 1) for i in range(6))
+    C, S, FBM, win, _ = _tables(cfg, y_padded.device, "ct", True)
+    (Chi, Clo), (Shi, Slo), (Fhi, Flo) = (tuple(t.to(sums) for t in _split_bf16(m)) for m in (C, S, FBM))
+    win = win.to(sums)
+    blocks = _ct_blocks(y_padded, scale, cfg, num_frames, first_frame, torch.ones_like(win) if no_window else win)
+
+    def split(x):  # (hi, lo), or (hi, -hi) with 'splits'
+        hi, lo = _split_bf16(x)
+        return (hi, -hi) if splits else (hi, lo)
+
+    def dot3h(a, b_hi, b_lo):
+        return a[0] @ b_hi if dots else (a[0] @ b_hi + a[0] @ b_lo) + a[1] @ b_hi
+
+    acc = None
+    with exact_f32():
+        for r in range(R // 2 + 1):
+            a_re, a_im = _inner_stage(blocks, R, r, no_inner)
+            sl = slice(r * 128, (r + 1) * 128)
+            ar = split(a_re)
+            x_re = dot3h(ar, Chi[sl], Clo[sl])
+            x_im = -dot3h(ar, Shi[sl], Slo[sl])
+            if a_im is not None:
+                ai = split(a_im)
+                x_re = x_re + dot3h(ai, Shi[sl], Slo[sl])
+                x_im = x_im + dot3h(ai, Chi[sl], Clo[sl])
+            p = x_re + x_im if no_power else x_re * x_re + x_im * x_im
+            if no_fb:
+                contrib = p[..., : cfg.n_mels]
+            elif dots:
+                contrib = split(p)[0] @ Fhi[sl]
+            else:
+                p_hi, p_lo = split(p)
+                contrib = (p_hi @ Fhi[sl] + p_hi @ Flo[sl]) + p_lo @ Fhi[sl]
             acc = contrib if acc is None else acc + contrib
     return acc.float()
 
@@ -636,8 +742,9 @@ def _lib(name: str):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     launch = getattr(lib, f"{source}_launch")
     launch.argtypes = {
-        # y, L, scale, C, S, FBM, win, wr, out, B, T, frame0, pad_l, n_fft, hop, n_mels, bf16, ablate, stream
-        "mel_power_ct": [vp, i64, vp, vp, vp, vp, vp, vp, vp, *[i32] * 9, vp],
+        # y, L, scale, rhs_frag, fb_frag, win, wr, out, B, T, frame0, pad_l, n_fft, hop, n_mels, tf, bf16,
+        # ablate, stream
+        "mel_power_ct": [vp, i64, vp, vp, vp, vp, vp, vp, *[i32] * 10, vp],
         # y, L, scale, rhs_frag, fb_frag, win, wr, out, B, T, frame0, pad_l, n_fft, hop, n_mels, bf16, stream
         "mel_power_ct_split": [vp, i64, vp, vp, vp, vp, vp, vp, *[i32] * 8, vp],
         # y, L, scale, basis_frag, fb_frag, out, B, T, frame0, pad_l, n_fft, hop, n_mels, tf, ksteps,
@@ -646,7 +753,7 @@ def _lib(name: str):
     }[source]
     launch.restype = i32
     smem = getattr(lib, f"{source}_smem_bytes")
-    smem.argtypes = [i32] * (6 if source == "mel_power_dense" else 2)
+    smem.argtypes = [i32] * {"mel_power_dense": 6, "mel_power_ct": 4}.get(source, 2)
     smem.restype = i64
     return lib
 
@@ -673,6 +780,31 @@ def dense_smem_bytes(n_fft: int, hop: int, tile: tuple, exact: bool) -> int:
 def dense_tile(n_fft: int, hop: int, exact: bool) -> tuple | None:
     """The first of ``DENSE_TILES`` whose shared memory fits a block, or None."""
     return next((t for t in DENSE_TILES if dense_smem_bytes(n_fft, hop, t, exact) <= SMEM_LIMIT), None)
+
+
+# the Cooley–Tukey kernel's frames a block, in the order it prefers them: each
+# table fragment comes from L2 once for all of a block's frames
+CT_TILES = (64, 32, 16)
+CT_LDA = 136  # bf16 a plane row of the ct kernel (128 + 8: conflict-free ldmatrix)
+
+
+def ct_smem_bytes(n_fft: int, hop: int, tf: int, exact: bool) -> int:
+    """Shared memory (bytes) of the Cooley–Tukey kernel with ``tf`` frames a
+    block: a ring of three buffers of table fragments (one k16 step of C and S
+    hi/lo, or two of the bf16 halves: 48 KB either way), then the f32 window
+    of (tf - 1)·hop + n_fft samples and two [tf][136] bf16 planes (hi and lo
+    with ``exact``), which at the end hold the q parts' mel values ([128][136]
+    f32 at most); the host's copy of ``mel_power_ct_smem_bytes``."""
+    parts = 2 if exact else 1
+    ring = 3 * (1 if exact else 2) * 16 * parts * 512
+    n_aud = (tf - 1) * hop + n_fft
+    work = -(-n_aud // 4) * 16 + 2 * parts * tf * CT_LDA * 2
+    return ring + max(work, 128 * CT_LDA * 4)
+
+
+def ct_tile(n_fft: int, hop: int, exact: bool) -> int | None:
+    """The first of ``CT_TILES`` whose shared memory fits a block, or None."""
+    return next((t for t in CT_TILES if ct_smem_bytes(n_fft, hop, t, exact) <= SMEM_LIMIT), None)
 
 
 def mel_power(
@@ -704,14 +836,16 @@ def mel_power(
     ``rms_scale`` [B]: rows with s > 0 are clip(y·s, −1, 1)'d before the
     window, rows with s <= 0 pass through raw.
     ``fused_dots`` (ct only; the kernel study's variant): the outer stage as
-    one product per r over bf16 hi/lo split operands (``exact``: hi·hi +
-    hi·lo + lo·hi, the reference's 3-pass scheme) on the tensor cores.
+    one product per r over concatenated bf16 hi/lo split operands on the
+    tensor cores.
     ``ablate`` (PROFILING ONLY — wrong output): classes of
     :func:`ablate_mask` dropped from the ct kernel at hop % 128 == 0, for
     ``probes/kernel_ablation.py``.
 
     A CUDA tensor goes to a Hopper kernel, or this raises; a CPU tensor goes
-    to the kernel's plain version.
+    to the kernel's plain version (an ablated exact call to
+    :func:`mel_power_ct_split_plain`, the arithmetic of the instantiations it
+    profiles; an intact exact call to plain f32).
     """
     if y.ndim != 2:
         raise ValueError(f"expected [B, L] rows, got shape {tuple(y.shape)}")
@@ -753,8 +887,8 @@ def mel_power(
             return mel_power_dense_plain(rows, rms_scale, cfg, num_frames, first_frame=first_frame, exact=exact)
         if fused_dots:
             return mel_power_ct_fused_plain(rows, rms_scale, cfg, num_frames, first_frame=first_frame, exact=exact)
-        return mel_power_ct_plain(rows, rms_scale, cfg, num_frames, first_frame=first_frame, exact=exact,
-                                  ablate=tuple(ablate))
+        plain = mel_power_ct_split_plain if exact and ablate else mel_power_ct_plain
+        return plain(rows, rms_scale, cfg, num_frames, first_frame=first_frame, exact=exact, ablate=tuple(ablate))
     if y.device.type != "cuda":
         raise ValueError(f"mel_power runs on cuda or cpu tensors, got {y.device}")
     if not pre_padded:
@@ -781,14 +915,22 @@ def mel_power(
                 f"{dense_smem_bytes(cfg.n_fft, cfg.hop_length, DENSE_TILES[-1], exact)} B of shared memory"
             )
         shape += tile
+    elif not fused_dots:
+        tf = ct_tile(cfg.n_fft, cfg.hop_length, exact)
+        if tf is None:
+            raise NotImplementedError(
+                f"n_fft={cfg.n_fft}, hop={cfg.hop_length} needs "
+                f"{ct_smem_bytes(cfg.n_fft, cfg.hop_length, CT_TILES[-1], exact)} B of shared memory"
+            )
+        shape.append(tf)
     else:
         smem = getattr(lib, f"{source}_smem_bytes")(cfg.n_fft, cfg.hop_length)
         if smem > SMEM_LIMIT:
             raise NotImplementedError(
                 f"n_fft={cfg.n_fft}, hop={cfg.hop_length} needs {smem} B of shared memory"
             )
-    tables = _tables(cfg, y.device, "ct_frag" if fused_dots else "dense_frag" if algorithm == "dense" else algorithm,
-                     exact)
+    kind = "ct_frag" if fused_dots else "dense_frag" if algorithm == "dense" else "ct_split_frag"
+    tables = _tables(cfg, y.device, kind, exact)
     out = torch.empty((B, num_frames, cfg.n_mels), device=y.device, dtype=torch.float32)
     mode = [int(not exact)] + ([mask] if source == "mel_power_ct" else [])
     with torch.cuda.device(y.device):

@@ -6,11 +6,13 @@ measured as the time that goes when the class is dropped:
 ``mel_power(ablate=...)`` (PROFILING ONLY — wrong output) times the kernel
 with ONE class removed at a time, each a delta against the intact kernel in
 the same process. Classes: window (Hann multiply), inner (inner-DFT
-combines), power (square-add), fb (filterbank product); ``floor`` drops all
-four and leaves staging plus the outer products. The reference's splits, dots
-and shifts classes have no counterpart in this kernel and are refused by
-``mel_power``. The intact kernel is measured first and last; the spread of
-that bracket is the drift a delta has to beat.
+combines), power (square-add), fb (filterbank product), and in the exact mode
+splits (the bf16 hi/lo splits: lo = -hi) and dots (one tensor-core pass per
+product instead of three); ``floor`` drops every class of the mode and leaves
+staging plus one pass of the outer products. The reference's shifts class has
+no counterpart in this kernel and is refused by ``mel_power``. The intact
+kernel is measured first and last; the spread of that bracket is the drift a
+delta has to beat.
 
     python -m anuraxla_torch.probes.kernel_ablation [--batch 1024] [--measure-s 4] [--bf16]
 
@@ -22,14 +24,16 @@ from __future__ import annotations
 
 import torch
 
-from anuraxla_torch.ops.mel_kernel import ABLATE_CLASSES, ablate_library, ablate_mask, mel_power
+from anuraxla_torch.ops.mel_kernel import ABLATE_CLASSES, EXACT_ONLY_CLASSES, ablate_library, ablate_mask, mel_power
 from anuraxla_torch.probes.common import device_header, emit, measure_ms, noise_rows, parser, pre_padded_rows, setup
 
-VARIANTS = (
-    [("baseline", ())]
-    + [(f"no-{cls}", (cls,)) for cls in ABLATE_CLASSES]
-    + [("floor", ABLATE_CLASSES), ("baseline-close", ())]
-)
+
+def variants(exact: bool) -> list:
+    """(name, ablate) of each timed variant in the mode: every class alone,
+    all of them (the floor), and the intact kernel first and last."""
+    classes = tuple(c for c in ABLATE_CLASSES if exact or c not in EXACT_ONLY_CLASSES)
+    return [("baseline", ())] + [(f"no-{cls}", (cls,)) for cls in classes] + [("floor", classes),
+                                                                              ("baseline-close", ())]
 
 
 def main(argv=None) -> None:
@@ -39,16 +43,17 @@ def main(argv=None) -> None:
     dev, cfg = setup(args)
     T = cfg.total_frames
     exact = not args.bf16
+    timed = variants(exact)
     rows, _ = pre_padded_rows(cfg, noise_rows(cfg, args.batch, args.seed))
     y = torch.from_numpy(rows).to(dev)
     emit({**device_header(dev), "batch": args.batch, "frames": T, "exact": exact, "pre_padded": True})
     if dev.type == "cuda":  # the ablated libraries, one nvcc each, all started together
         from anuraxla_torch.ops import _build
 
-        _build.build([ablate_library(ablate_mask(ablate)) for _, ablate in VARIANTS if ablate])
+        _build.build([ablate_library(ablate_mask(ablate, exact=exact)) for _, ablate in timed if ablate])
 
     measured = []
-    for name, ablate in VARIANTS:
+    for name, ablate in timed:
         ms = measure_ms(lambda y: mel_power(y, cfg, num_frames=T, exact=exact, algorithm="ct",
                                             pre_padded=True, ablate=ablate), y, args.measure_s, dev)
         measured.append((name, ms))

@@ -3,9 +3,10 @@
 
 The reference sweeps ``tile_t x row_block x fused``; the first two are
 blocking knobs of its compiler with no counterpart here (one CUDA block owns
-a row and 32 frames at every config), so the sweep is ``fused`` in {0, 1} by
-mode: the FP32 FFMA kernel against the split-bf16 tensor-core kernel
-(``mel_power(fused_dots=True)``), and with ``--bf16`` their bf16 modes.
+a row and a frame tile the host picks), so the sweep is ``fused`` in {0, 1} by
+mode: the Cooley–Tukey kernel (one product per r, each table stored once)
+against the concatenated-operand kernel (``mel_power(fused_dots=True)``), both
+on the tensor cores, and with ``--bf16`` their bf16 modes.
 ``--hop-length 320`` sweeps the hop % 32 family.
 
     python -m anuraxla_torch.probes.kernel_variants [--batch 1024] [--measure-s 4] [--bf16]

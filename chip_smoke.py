@@ -6,14 +6,13 @@ Needs one CUDA card, ``nvcc`` and the checkout it sits in. Phases (any
 failure exits non-zero):
 1. build every Hopper kernel of ``anuraxla_torch/csrc`` (one nvcc each, all
    started together);
-2. hold each serving kernel and mode against its plain PyTorch version on the card,
-   each row against its own max, with a silent and a clipping row: the
-   Cooley-Tukey kernel exact (``DEFAULT_MEL``, R = 2), in its bf16 mode (full
-   range and the fast tier's frame range), at hop 320 / 160 / 96; the dense
-   kernel exact and bf16 at hop 240 and at n_fft 400 / hop 80, against the
-   plain version of its split arithmetic and, exact, against plain f32. The
-   bf16 Cooley-Tukey cases and the dense cases are also held to their plain
-   version with f64 sums, to show where their differences come from;
+2. hold each serving kernel and mode against the plain PyTorch version of its
+   arithmetic on the card, each row against its own max, with a silent and a
+   clipping row: the Cooley-Tukey kernel exact (``DEFAULT_MEL``, R = 2), in
+   its bf16 mode (full range and the fast tier's frame range), at hop 320 /
+   160 / 96; the dense kernel exact and bf16 at hop 240 and at n_fft 400 / hop
+   80; every exact case also against plain f32. Every case is also held to its
+   plain version with f64 sums, to show where the differences come from;
 3. drive the main paths — ``EncoderSession.encode_paths`` and
    ``detect_species`` on six WAVs — with the kernels' launch counts set to 0
    just before each and read just after: the parity and balanced tiers at
@@ -24,14 +23,15 @@ failure exits non-zero):
 4. time ``encode_array`` (chunks/s, balanced and fast tier), each kernel, its
    plain version, its bound and one PyTorch library call computing the same
    function (the exact dense kernel at B = 256, the shape of earlier runs, and
-   at B = 1024);
+   at B = 1024), with the frame tile each kernel took;
 5. the kernel study, after every serving phase so that those run as they did
    before it existed: hold the split-bf16 tensor-core kernel
    (``fused_dots=True``) to its plain version, exact and bf16, at
    ``DEFAULT_MEL`` pre-padded, at the fast tier's frame range, at hop 320 and
    at R = 2, to the plain version with f64 sums, and the exact mode to the
    plain f32 version; hold each ablated instantiation of the Cooley-Tukey
-   kernel to its ablated plain version; drive the study path at full width
+   kernel to its ablated plain version (six classes and their floor in the
+   exact mode, four and theirs in the bf16 mode); drive the study path at full width
    (B = 1024, 626 frames), counts set to 0 just before: the variants sweep
    (hop 384 and hop 320), the pre-padded variants, the ablation probe (exact
    and bf16), the stage split and the three-leg bench, through the ``main`` of
@@ -64,16 +64,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet, dense rates): FP32 outside the
-# tensor cores, bf16 on them, and HBM3 bandwidth. A kernel is bounded at the
-# peak of the type it multiplies in: the FP32 FFMA kernels' exact modes at the
-# FP32 rate; every bf16 mode, and both modes of the split kernel and of the
-# dense kernel (each product has bf16 operands, f32 sums), at the bf16 rate,
-# their exact modes with the function's least work counted once for each of
-# the three passes (hi*hi, hi*lo, lo*hi). The scale, window and power steps
-# stay f32 but are under a tenth of the work; taking the whole at the bf16 rate
-# can only lower the bound.
-PEAK_FP32_FLOPS = 67e12
+# H100 SXM published peaks (NVIDIA data sheet, dense rates): bf16 on the tensor
+# cores and HBM3 bandwidth. Every kernel multiplies bf16 operands on the tensor
+# cores with f32 sums, so each is bounded at the bf16 rate, its exact mode with
+# the function's least work counted once for each of the three passes (hi*hi,
+# hi*lo, lo*hi). The scale, window and power steps stay f32 but are under a
+# tenth of the work; taking the whole at the bf16 rate can only lower the bound.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # kernel vs plain, each row against its own max |plain|. Exact modes: both
@@ -90,6 +86,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # p = x_re + x_im, the filterbank sum cancels, and one term can exceed the row's
 # max: there a single flip is held to one bf16 step (2^-7) of a term twice that
 # max (the largest measured is 6.3e-3), and the mean gate carries the check.
+# ablate=("splits",) (lo = -hi) makes every product a difference of two terms
+# ~2^8 larger than itself, in both stages, so the accumulators' rounding shows
+# ~2^16 larger: held to the same step; ablate=("dots",) is one bf16 pass, held
+# to the bf16 gate.
 REL_TOL = 2e-5
 REL_TOL_BF16_MAX = 3e-3
 REL_TOL_BF16_SIGNED_MAX = 2.0 ** -6
@@ -157,16 +157,17 @@ def mel_work(cfg, fb: np.ndarray, B: int, T: int, L: int):
     return float(flops_frame * B * T + B * min(L, cfg.num_samples)), nbytes
 
 
-def ct_gemm_flops(cfg, B: int, T: int) -> float:
-    """FP32 flops the Cooley-Tukey kernel's GEMM form does (dense 128x128
-    outer products, merged filterbank, literal-weight inner stage): the
-    kernel's own work, printed beside its time; not its bound."""
+def ct_mma_flops(cfg, B: int, T: int, exact: bool) -> float:
+    """Tensor-core flops the Cooley-Tukey kernel's form does: per r the
+    128-deep products of a_re (and a_im for a complex r) into x_re and x_im of
+    128 bins, then the power against the merged filterbank (mels rounded up to
+    8), three passes in the exact mode; its own work, not its bound."""
     R = cfg.n_fft // 128
     fma = 0
     for r in range(R // 2 + 1):
-        real = r == 0 or 2 * r == R
-        fma += (2 if real else 4) * 128 * 128 + 128 * cfg.n_mels + R * 128 * (1 if real else 2)
-    return 2.0 * fma * B * T
+        comps = 1 if r == 0 or 2 * r == R else 2
+        fma += comps * 2 * 128 * 128 + 128 * 8 * -(-cfg.n_mels // 8)
+    return 2.0 * (3 if exact else 1) * fma * B * T
 
 
 def ct_split_flops(cfg, B: int, T: int, exact: bool) -> float:
@@ -201,7 +202,7 @@ def phase_build() -> None:
     from anuraxla_torch.ops.mel_kernel import ablate_library, ablate_mask
 
     # every source, and the ablated instantiations this run compares and times
-    names = _build.sources() + [ablate_library(ablate_mask(a)) for a in ABLATIONS]
+    names = _build.sources() + sorted({ablate_library(ablate_mask(a)) for a in ABLATIONS})
     t0 = time.perf_counter()
     _build.build(names)
     # loaded now: the serving libraries alone. The study's load at their first
@@ -293,11 +294,15 @@ STUDY_CASES = [
     Case("mel_power_ct_fused_bf16", "DEFAULT_MEL", 64, False, fast=True, fused=True),
     Case("mel_power_ct_fused_bf16", "hop320", 32, False, fused=True),
 ]
-# each wired ablation class and the probe's floor (all four), in both modes;
+# each wired ablation class and the probe's floor (every class of the mode):
+# six in the exact mode, the four that are not the split's in the bf16 mode;
 # their launches count under the intact kernel's name
-ABLATIONS = [("window",), ("inner",), ("power",), ("fb",), ("window", "inner", "power", "fb")]
+ABLATE_BF16 = ("window", "inner", "power", "fb")
+ABLATE_EXACT = ABLATE_BF16 + ("splits", "dots")
+ABLATIONS = [(c,) for c in ABLATE_EXACT] + [ABLATE_EXACT, ABLATE_BF16]
 STUDY_CASES += [Case("mel_power_ct" if exact else "mel_power_ct_bf16", "DEFAULT_MEL", 16, exact, pre_padded=True,
-                     ablate=a) for exact in (True, False) for a in ABLATIONS]
+                     ablate=a) for exact in (True, False) for a in ABLATIONS
+                if exact or set(a) <= set(ABLATE_BF16)]
 
 
 def row_rel(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -311,7 +316,7 @@ def phase_kernel_vs_plain(cases, rng) -> dict:
 
     if set(KERNELS) != set(mk.KERNEL_NAMES):
         raise AssertionError(f"this script lists {sorted(KERNELS)}, the wrapper counts {mk.KERNEL_NAMES}")
-    if sorted(set(a[0] for a in ABLATIONS if len(a) == 1)) != sorted(mk.ABLATE_CLASSES):
+    if ABLATE_EXACT != mk.ABLATE_CLASSES or set(ABLATE_EXACT) - set(ABLATE_BF16) != set(mk.EXACT_ONLY_CLASSES):
         raise AssertionError(f"this script ablates {ABLATIONS}, the wrapper wires {mk.ABLATE_CLASSES}")
     result, failures = {}, []
     for case in cases:
@@ -327,8 +332,8 @@ def phase_kernel_vs_plain(cases, rng) -> dict:
             plain = mk.mel_power_ct_fused_plain
         elif case.algorithm == "dense":
             plain = mk.mel_power_dense_split_plain
-        else:
-            plain = functools.partial(mk.mel_power_ct_plain, ablate=case.ablate)
+        else:  # the split arithmetic; in the bf16 mode the plain bf16 version itself
+            plain = functools.partial(mk.mel_power_ct_split_plain, ablate=case.ablate)
         ref = plain(x_padded, s, cfg, T, first_frame=first, exact=exact)
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got).all():
@@ -340,17 +345,21 @@ def phase_kernel_vs_plain(cases, rng) -> dict:
         per_row = rel.amax(dim=(1, 2))
         worst, mean = float(per_row.max()), float(rel.mean())
         signed_p = "power" in case.ablate and "fb" not in case.ablate  # fb dropped: p is not rounded
-        tol = REL_TOL if exact else REL_TOL_BF16_SIGNED_MAX if signed_p else REL_TOL_BF16_MAX
+        if exact and not set(case.ablate) & {"splits", "dots"}:
+            tol = REL_TOL
+        elif signed_p or "splits" in case.ablate:
+            tol = REL_TOL_BF16_SIGNED_MAX
+        else:
+            tol = REL_TOL_BF16_MAX
         what = f"{kernel}{' ablate=' + '+'.join(case.ablate) if case.ablate else ''} {label}"
         log(f"[kernel-vs-plain] {what} B={B} frames {first}..{first + T - 1}: "
             f"max|diff|={abs_err:.3e}; of each row's max: worst {worst:.3e} (tol {tol}), "
             f"mean {mean:.3e} (tol {REL_TOL}), share above {REL_TOL}: {float((rel > REL_TOL).float().mean()):.4f} "
             f"(silent row {float(per_row[0]):.3e}, clipping row {float(per_row[1]):.3e})")
-        split = case.fused or case.algorithm == "dense"  # the bf16 hi/lo tensor-core kernels
-        if split or (not exact and not case.ablate):
+        if not case.ablate:
             # where the differences come from: the same rounding points with
-            # f64 sums. For the split kernels this is the tensor cores' f32
-            # accumulation against an exact sum of the same bf16 products
+            # f64 sums, the tensor cores' f32 accumulation against an exact sum
+            # of the same bf16 products
             ref64 = plain(x_padded, s, cfg, T, first_frame=first, exact=exact, sums=torch.float64)
             vs64 = {n: row_rel(v, ref64) for n, v in (("kernel", got), ("plain", ref))}
             log(f"[kernel-vs-plain]   against the plain version with f64 sums, of each row's max: " + "; ".join(
@@ -359,10 +368,10 @@ def phase_kernel_vs_plain(cases, rng) -> dict:
             del ref64, vs64
         if not (worst <= tol and mean <= REL_TOL):
             failures.append(f"{what}: kernel disagrees with plain version (worst {worst:.3e}, mean {mean:.3e})")
-        if split and exact:
+        if exact and not case.ablate:
             # the split scheme must hold the exact tier's gate against plain
             # f32 arithmetic too (this also catches a fault in the shared tables)
-            f32 = (mk.mel_power_ct_plain if case.fused else mk.mel_power_dense_plain)(
+            f32 = (mk.mel_power_dense_plain if case.algorithm == "dense" else mk.mel_power_ct_plain)(
                 x_padded, s, cfg, T, first_frame=first)
             vs_f32 = row_rel(got, f32)
             log(f"[kernel-vs-plain]   against the plain f32 version (no split), of each row's max: "
@@ -624,7 +633,7 @@ def time_kernel(kernel: str, label: str, B: int, rng, *, exact: bool, algorithm:
     x, x_padded, s, first, T = kernel_inputs(cfg, B, rng, fast=fast, pre_padded=pre_padded)
     ms = cuda_ms(lambda: mk.mel_power(x, cfg, num_frames=T, first_frame=first, rms_scale=s, pre_padded=pre_padded,
                                       exact=exact, algorithm=algorithm, fused_dots=fused), iters=iters)
-    plain_fn = (mk.mel_power_ct_fused_plain if fused else mk.mel_power_ct_plain if algorithm == "ct"
+    plain_fn = (mk.mel_power_ct_fused_plain if fused else mk.mel_power_ct_split_plain if algorithm == "ct"
                 else mk.mel_power_dense_split_plain)
     plain_ms = (cuda_ms(lambda: plain_fn(x_padded, s, cfg, T, first_frame=first, exact=exact), iters=2, warmup=1)
                 if plain else None)
@@ -633,39 +642,40 @@ def time_kernel(kernel: str, label: str, B: int, rng, *, exact: bool, algorithm:
     # clip, else the frame range's span
     L = x.shape[1] if not fast else (T - 1) * cfg.hop_length + cfg.n_fft
     flops, nbytes = mel_work(cfg, fb_np, B, T, L)
-    # the peak of the operands the kernel multiplies: bf16 on the tensor cores
-    # in a bf16 mode and in the split and dense kernels, whose exact modes make
-    # three passes
-    split = fused or algorithm == "dense"
-    peak, peak_name = (PEAK_BF16_FLOPS, "bf16") if split or not exact else (PEAK_FP32_FLOPS, "FP32")
-    passes = 3 if split and exact else 1
+    # every kernel multiplies bf16 operands on the tensor cores; an exact mode
+    # makes three passes
+    passes = 3 if exact else 1
     flops *= passes
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     if fused:
-        own, unit = ct_split_flops(cfg, B, T, exact), "bf16 mma.sync"
+        own, tile = ct_split_flops(cfg, B, T, exact), "32 frames a block"
     elif algorithm == "dense":
-        own, unit = dense_mma_flops(cfg, B, T, exact), "bf16 mma.sync"
+        own = dense_mma_flops(cfg, B, T, exact)
+        tile = "(frames a block, k16 steps a ring buffer, buffers) = {}".format(
+            mk.dense_tile(cfg.n_fft, cfg.hop_length, exact))
     else:
-        own, unit = ct_gemm_flops(cfg, B, T), "FP32 FFMA"
+        own = ct_mma_flops(cfg, B, T, exact)
+        tile = f"{mk.ct_tile(cfg.n_fft, cfg.hop_length, exact)} frames a block"
 
     off = cfg.n_fft // 2
     raw = x[:, off : off + cfg.num_samples] if pre_padded else x
     win = torch.hann_window(cfg.n_fft, periodic=True, device="cuda")
     fb = torch.from_numpy(fb_np).cuda()
     library_ms = cuda_ms(lambda: library_mel(cfg, raw, first, T, fb, win), iters=5)
-    tables = mk._tables(cfg, x.device, "ct_frag" if fused else "dense_frag" if algorithm == "dense" else algorithm,
+    tables = mk._tables(cfg, x.device, "ct_frag" if fused else "dense_frag" if algorithm == "dense" else "ct_split_frag",
                         exact)
     plain_txt = f"{plain_ms:.3f} ms" if plain else "not timed"
     log(f"[times] {kernel} {label} B={B} frames {first}..{first + T - 1}: kernel {ms:.3f} ms, "
         f"plain {plain_txt}, library(torch.stft) {library_ms:.3f} ms (kernel/library {ms / library_ms:.2f}x), "
         f"bound {bound_ms:.3f} ms by {bound_by} (function's least work: {flops / 1e9:.2f} GFLOP "
-        f"{'x 3 passes ' if passes == 3 else ''}-> {t_ops:.3f} ms at the {peak_name} peak, {nbytes / 1e9:.3f} GB -> {t_bytes:.3f} ms) = {100 * bound_ms / ms:.2f}% of bound; "
-        f"the kernel's own form does {own / 1e12:.3f} TFLOP = {own / ms / 1e9:.2f} TFLOP/s on {unit}; "
+        f"{'x 3 passes ' if passes == 3 else ''}-> {t_ops:.3f} ms at the bf16 peak, {nbytes / 1e9:.3f} GB -> "
+        f"{t_bytes:.3f} ms) = {100 * bound_ms / ms:.2f}% of bound; the kernel's own form does {own / 1e12:.3f} "
+        f"TFLOP = {own / ms / 1e9:.2f} TFLOP/s on bf16 mma.sync; tile {tile}; "
         f"tables at {[hex(t.data_ptr()) for t in tables]}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                config=f"{label} B={B} frames {first}..{first + T - 1}")
+                config=f"{label} B={B} frames {first}..{first + T - 1}", tile=tile)
 
 
 def dense_checkpoint(where: str, shift_mb: int | None = None) -> None:
@@ -865,7 +875,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source, "replaces": replaces, "config": t["config"],
             "launches": launches[name], "max_abs_err": errors[name][0], "max_rel_err": errors[name][1],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "tile": t["tile"],
         })
     from anuraxla_torch.probes.common import card_line
 

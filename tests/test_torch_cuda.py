@@ -216,14 +216,19 @@ def test_fused_kernel_matches_plain(card, cfg, exact, fast, pre_padded):
         assert float(((got - f32).abs() / f32.abs().amax(dim=(1, 2), keepdim=True)).max()) <= 2e-5
 
 
-@pytest.mark.parametrize("exact", [True, False], ids=["exact", "bf16"])
-@pytest.mark.parametrize("classes", [(c,) for c in tk.ABLATE_CLASSES] + [tk.ABLATE_CLASSES, ("window", "fb")],
-                         ids=lambda c: "+".join(c))
+BF16_CLASSES = tuple(c for c in tk.ABLATE_CLASSES if c not in tk.EXACT_ONLY_CLASSES)
+ABLATED = ([(c,) for c in tk.ABLATE_CLASSES] + [tk.ABLATE_CLASSES, ("window", "fb"), ("splits", "fb")],
+           [(c,) for c in BF16_CLASSES] + [BF16_CLASSES, ("window", "fb")])
+
+
+@pytest.mark.parametrize("classes,exact", [(c, e) for e in (True, False) for c in ABLATED[not e]],
+                         ids=lambda v: "+".join(v) if isinstance(v, tuple) else ("exact" if v else "bf16"))
 @pytest.mark.parametrize("cfg", [R16, dict(R16, hop_length=512, n_fft=1024)], ids=["r16", "r8"])
 def test_ablated_kernel_matches_ablated_plain(card, cfg, classes, exact):
     """Each ablated instantiation drops what the ablated plain version drops
-    (wrong output by design, held to the mode's gate); its launch counts under
-    the kernel's own name."""
+    (wrong output by design; the exact mode's twin is the split arithmetic,
+    ``mel_power_ct_split_plain``), held to the mode's gate; its launch counts
+    under the kernel's own name."""
     cfg = MelConfig(**cfg)
     T = cfg.total_frames
     raw = torch.from_numpy(_rows(cfg, 3, seed=8)).to(card)
@@ -234,22 +239,83 @@ def test_ablated_kernel_matches_ablated_plain(card, cfg, classes, exact):
     assert _launches() == dict(n0, **{counter: n0[counter] + 1})
     pad = cfg.n_fft // 2
     centred = torch.nn.functional.pad(raw, (pad, pad))
-    ref = tk.mel_power_ct_plain(centred, s, cfg, T, exact=exact, ablate=classes)
+    ref = tk.mel_power_ct_split_plain(centred, s, cfg, T, exact=exact, ablate=classes)
     rel = (got - ref).abs() / ref.abs().amax(dim=(1, 2), keepdim=True)
     # bf16 with the power dropped rounds a signed p and the filterbank sum cancels, so
     # one term can exceed the row's max: a flipped rounding is held to a bf16 step
-    # (2^-7) of a term twice that max, not to 3e-3; the mean carries the check
+    # (2^-7) of a term twice that max, not to 3e-3; the mean carries the check.
+    # 'splits' (lo = -hi) makes every product a difference of two terms ~2^8 larger
+    # than itself, in both stages, so the accumulators' rounding shows ~2^16 larger:
+    # the same held step. 'dots' is one bf16 pass: the bf16 mode's gate
     signed_p = "power" in classes and "fb" not in classes
-    assert float(rel.max()) <= (2e-5 if exact else 2.0 ** -6 if signed_p else 3e-3), rel.amax(dim=(1, 2))
+    if exact and "splits" not in classes and "dots" not in classes:
+        tol = 2e-5
+    elif signed_p or "splits" in classes:
+        tol = 2.0 ** -6
+    else:
+        tol = 3e-3
+    assert float(rel.max()) <= tol, rel.amax(dim=(1, 2))
     assert float(rel.mean()) <= 2e-5
     intact = tk.mel_power_ct_plain(centred, s, cfg, T, exact=exact)
-    assert float((got - intact).abs().max() / intact.abs().max()) > 1e-2  # dropped, not ignored
+    dropped = 5e-4 if classes == ("dots",) else 1e-2  # one pass moves it by ~2e-3 of the max
+    assert float((got - intact).abs().max() / intact.abs().max()) > dropped  # dropped, not ignored
+
+
+CT_CASES = [
+    # (config, exact, first_frame, pre-padded rows, the frame tile ct_tile picks)
+    (SMALL, True, 0, True, 64),                                        # R = 2: no complex r
+    (dict(SMALL, n_fft=512, hop_length=96, n_mels=20), True, 3, False, 64),  # R = 4, a ragged mel tile
+    (dict(R16, n_mels=128), True, 5, True, 64),                        # R = 16, 128 mels
+    (dict(R16, n_fft=4096, hop_length=512, duration=2.0), True, 0, False, 32),  # R = 32
+    (dict(R16, hop_length=160), False, 2, False, 64),
+    (dict(R16, n_fft=4096, hop_length=512, duration=2.0, n_mels=128), False, 1, False, 64),
+    (dict(R16, hop_length=1120, duration=3.0), True, 1, False, 32),   # the longest hop the FP32 kernel took
+    (dict(R16, hop_length=2048, duration=4.0, n_mels=20), True, 0, False, 16),  # the smallest tile
+    (dict(R16, hop_length=2048, duration=4.0), False, 1, False, 16),
+]
+
+
+@pytest.mark.parametrize("cfg,exact,first,pre_padded,tf", CT_CASES,
+                         ids=[f"{i}-{'exact' if m[1] else 'bf16'}-tf{m[4]}" for i, m in enumerate(CT_CASES)])
+def test_ct_kernel_matches_split_plain(card, cfg, exact, first, pre_padded, tf):
+    """The Cooley–Tukey kernel at R = 2, 4, 16 and 32, hop % 128 with
+    pre-padded rows and hop % 32, frame ranges, 20 / 64 / 128 mels and each
+    of its frame tiles, against the plain version of its split arithmetic
+    (exact: 2e-5 of each row's max; bf16: 3e-3 worst, 2e-5 mean) and, exact,
+    against plain f32 at 2e-5. The kernel's shared memory is the host's
+    formula for every tile."""
+    cfg = MelConfig(**cfg)
+    assert tk.ct_tile(cfg.n_fft, cfg.hop_length, exact) == tf
+    lib = tk._lib("mel_power_ct")
+    for t in tk.CT_TILES:
+        want = tk.ct_smem_bytes(cfg.n_fft, cfg.hop_length, t, exact)
+        assert lib.mel_power_ct_smem_bytes(cfg.n_fft, cfg.hop_length, t, int(not exact)) == want
+    raw = torch.from_numpy(_rows(cfg, 3, seed=10)).to(card)
+    s = tfe.rms_scale_batch(raw)
+    T = cfg.total_frames - first - 1
+    pad = cfg.n_fft // 2
+    x, centred = raw, torch.nn.functional.pad(raw, (pad, pad))
+    if pre_padded:
+        L_pad, off = tk.phase_padded_layout(cfg, first + T)
+        x = centred = torch.nn.functional.pad(raw, (off, L_pad - off - cfg.num_samples))
+    counter = tk.kernel_name(cfg, "ct", exact)
+    n0 = _launches()
+    got = tk.mel_power(x, cfg, num_frames=T, first_frame=first, rms_scale=s, pre_padded=pre_padded, exact=exact)
+    assert _launches() == dict(n0, **{counter: n0[counter] + 1})
+    ref = tk.mel_power_ct_split_plain(centred, s, cfg, T, first_frame=first, exact=exact)
+    assert got.shape == ref.shape == (3, T, cfg.n_mels) and torch.isfinite(got).all()
+    rel = (got - ref).abs() / ref.abs().amax(dim=(1, 2), keepdim=True)
+    assert float(rel.max()) <= (2e-5 if exact else 3e-3), rel.amax(dim=(1, 2))
+    assert float(rel.mean()) <= 2e-5
+    if exact:
+        f32 = tk.mel_power_ct_plain(centred, s, cfg, T, first_frame=first)
+        assert float(((got - f32).abs() / f32.abs().amax(dim=(1, 2), keepdim=True)).max()) <= 2e-5
 
 
 def test_study_options_refuse_on_cuda(card):
     cfg = MelConfig(**R16)
     x = torch.zeros((2, cfg.num_samples), device=card)
-    for kw, reason in ((dict(ablate=("splits",)), "one FP32 pass"), (dict(ablate=("shifts",)), "any sample offset"),
+    for kw, reason in ((dict(ablate=("shifts",)), "any sample offset"),
                        (dict(ablate=("dots",), exact=False), "no split/multi-pass"),
                        (dict(ablate=("power",), fused_dots=True), "fused-dots"),
                        (dict(fused_dots=True, algorithm="dense"), "algorithm 'ct'")):
@@ -269,8 +335,8 @@ def test_wrapper_refuses_on_cuda(card):
         tk.mel_power(x, MelConfig(hop_length=240), num_frames=10, algorithm="ct")
     with pytest.raises(NotImplementedError):
         tk.mel_power(x, MelConfig(n_mels=160), num_frames=10)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        tk.mel_power(x, MelConfig(hop_length=2048), num_frames=4)
+    with pytest.raises(NotImplementedError, match="shared memory"):  # past even 16 frames a block
+        tk.mel_power(x, MelConfig(hop_length=4096), num_frames=4)
     with pytest.raises(ValueError):
         tk.mel_power(x, MelConfig(), num_frames=10, algorithm="fft")
     with pytest.raises(ValueError):

@@ -67,14 +67,16 @@ def test_kernel_ablation(capsys, bf16):
     head, *rows = _lines(capsys)
     _check_header(head)
     assert head["exact"] is (not bf16)
-    names = ["baseline", "no-window", "no-inner", "no-power", "no-fb", "floor", "baseline-close"]
-    assert [r["variant"] for r in rows[:7]] == names and all(r["ms_per_batch"] > 0 for r in rows[:7])
-    bracket = rows[7]["baseline_bracket_ms"]
-    assert bracket == [rows[0]["ms_per_batch"], rows[6]["ms_per_batch"]]
-    deltas = rows[8:]
-    assert [r["variant"] for r in deltas] == names[1:6]
+    names = (["baseline", "no-window", "no-inner", "no-power", "no-fb"] + ([] if bf16 else ["no-splits", "no-dots"])
+             + ["floor", "baseline-close"])
+    n = len(names)
+    assert [r["variant"] for r in rows[:n]] == names and all(r["ms_per_batch"] > 0 for r in rows[:n])
+    bracket = rows[n]["baseline_bracket_ms"]
+    assert bracket == [rows[0]["ms_per_batch"], rows[n - 1]["ms_per_batch"]]
+    deltas = rows[n + 1 :]
+    assert [r["variant"] for r in deltas] == names[1:-1]
     mean = sum(bracket) / 2
-    for r, timed in zip(deltas, rows[1:6]):
+    for r, timed in zip(deltas, rows[1 : n - 1]):
         assert np.isclose(r["delta_ms_vs_baseline"], mean - timed["ms_per_batch"])
         assert np.isclose(r["pct_of_baseline"], r["delta_ms_vs_baseline"] / mean * 100)
 

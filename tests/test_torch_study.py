@@ -181,10 +181,22 @@ def test_fused_plain_other_configs(cfg, exact):
     assert _row_rel(got, want) <= TOL[exact]
 
 
-@pytest.mark.parametrize("exact", [True, False], ids=["exact", "bf16"])
-@pytest.mark.parametrize("cls", tk.ABLATE_CLASSES)
+ABLATED = [(cls, exact) for exact in (True, False) for cls in tk.ABLATE_CLASSES
+           if exact or cls not in tk.EXACT_ONLY_CLASSES]
+
+
+@pytest.mark.parametrize("cls,exact", ABLATED, ids=[f"{c}-{'exact' if e else 'bf16'}" for c, e in ABLATED])
 def test_ablated_plain_matches_jax(cls, exact):
-    """Each wired class drops what the reference's ``ablate=(cls,)`` drops."""
+    """Each wired class drops what the reference's ``ablate=(cls,)`` drops;
+    'splits' and 'dots' in the exact mode alone (the CPU computes an ablated
+    exact call with the split arithmetic, ``mel_power_ct_split_plain``).
+    'dots' leaves one bf16 pass, whose rounding points flip as the bf16
+    mode's do: it is held to the bf16 gate, and it moves the output by about
+    the bf16 mode's own distance from the exact one (~2e-3 of the max), not
+    1e-2. 'splits' (lo = -hi) turns every product into a difference of two
+    terms ~2^8 larger than itself, twice, so the order of the f32 sums shows
+    ~2^16 larger: held to the bf16 gate as well (read: 7.4e-4 worst, 1.1e-7
+    mean)."""
     cfg, jcfg = MelConfig(**R16), JMel(**R16)
     y, scale = _rows(cfg, 2, seed=24)
     T = cfg.total_frames
@@ -192,9 +204,10 @@ def test_ablated_plain_matches_jax(cls, exact):
                                 exact=exact, rms_scale=jnp.asarray(scale), ablate=(cls,))
     s = torch.from_numpy(scale)
     got = tk.mel_power(torch.from_numpy(y), cfg, num_frames=T, rms_scale=s, exact=exact, ablate=(cls,))
-    assert _row_rel(got, want) <= TOL[exact]
+    assert _row_rel(got, want) <= TOL[exact and cls not in tk.EXACT_ONLY_CLASSES]
     intact = tk.mel_power(torch.from_numpy(y), cfg, num_frames=T, rms_scale=s, exact=exact)
-    assert float((got - intact).abs().max() / intact.abs().max()) > 1e-2  # dropped, not ignored
+    dropped = 5e-4 if cls == "dots" else 1e-2
+    assert float((got - intact).abs().max() / intact.abs().max()) > dropped  # dropped, not ignored
 
 
 def test_ablate_floor_and_generic_inner_match_jax():
@@ -224,8 +237,6 @@ def test_ablate_empty_is_bitwise_the_plain_path():
 
 REFUSALS = [
     # (config, mel_power keywords, a word of the reason)
-    (R16, dict(ablate=("splits",)), "one FP32 pass"),
-    (R16, dict(ablate=("dots",)), "one FP32 pass"),
     (R16, dict(ablate=("splits",), exact=False), "no split/multi-pass"),
     (R16, dict(ablate=("dots",), exact=False), "no split/multi-pass"),
     (R16, dict(ablate=("shifts",)), "any sample offset"),
