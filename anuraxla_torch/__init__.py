@@ -2,7 +2,7 @@
 
 Each module carries the name of its counterpart in ``anuraxla`` so a reader
 can find the reference it is held against. The package imports torch, numpy
-and scipy, and nothing of JAX, flax or ``anuraxla``: what it needs from the
+and scipy, and nothing of JAX, flax, msgpack or ``anuraxla``: what it needs from the
 reference's jax-free modules is copied here.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes

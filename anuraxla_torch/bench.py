@@ -41,17 +41,30 @@ from anuraxla_torch.constants import DEFAULT_MEL, MelConfig
 from anuraxla_torch.detect.radial import radial_decide
 from anuraxla_torch.models.vae import VAEConfig
 from anuraxla_torch.ops.frontend import log_mel_batch, mel_to_encoder_input, rms_scale_batch
+from anuraxla_torch.ops.mel_kernel import ct_tile
 from anuraxla_torch.probes.common import detector_tables, device_header, pre_padded_rows, seeded_encoder
 
 FETCH_GROUP = 8  # batches per fetched digest
 WINDOW_SECONDS = 2.5  # one measurement window (adaptive_rate)
 WINDOW_TOL = 0.10  # two consecutive windows within 10% = converged
 MAX_LEG_SECONDS = 120.0  # measurement budget per leg
-# NVIDIA H100 SXM, published dense peaks (data sheet): FP32 outside the tensor
-# cores (the exact mel kernel's FFMA loops) and bf16 on them (the bf16 trunk)
-H100_PEAK_FP32_FLOPS = 67e12
+# NVIDIA H100 SXM, published dense peak (data sheet): bf16 on the tensor cores,
+# where the mel kernels (bf16 operands, f32 sums) and the bf16 trunk multiply
 H100_PEAK_BF16_FLOPS = 989e12
-KERNEL_TILE_FRAMES = 32  # frames a block of csrc/mel_power_ct.cu owns
+
+
+def ct_mma_flops(cfg: MelConfig, B: int, T: int, exact: bool) -> float:
+    """Tensor-core flops the Cooley-Tukey kernel's form does for T frames of
+    B rows: per r the 128-deep products of a_re (and a_im for a complex r)
+    into x_re and x_im of 128 bins, then the power against the merged
+    filterbank (mels rounded up to 8), three passes in the exact mode; its
+    own work, not its bound."""
+    R = cfg.n_fft // 128
+    fma = 0
+    for r in range(R // 2 + 1):
+        comps = 1 if r == 0 or 2 * r == R else 2
+        fma += comps * 2 * 128 * 128 + 128 * 8 * -(-cfg.n_mels // 8)
+    return 2.0 * (3 if exact else 1) * fma * B * T
 
 
 def pipeline_flops(mel: MelConfig, vcfg: VAEConfig) -> dict:
@@ -60,24 +73,19 @@ def pipeline_flops(mel: MelConfig, vcfg: VAEConfig) -> dict:
     - ``dense_equiv``: the useful math a dense windowed-DFT implementation
       does for the same result (frames × [2·n_fft·n_freq DFT + mel]) over the
       clip's real frames — the figure a dense-formulation reader expects;
-    - ``kernel_actual``: the FP32 MACs the port's exact Cooley–Tukey kernel
-      executes in its GEMM form — conjugate-symmetry-halved outer products,
-      the merged filterbank and the literal-weight count of the inner stage,
-      over the frames its 32-frame tiles compute (one FP32 pass: no split).
+    - ``kernel_actual``: what the balanced leg's exact Cooley–Tukey kernel
+      executes on the tensor cores (``ct_mma_flops``: three bf16 ``mma``
+      passes) over the frames its ``ct_tile``-frame blocks compute.
 
-    Both include the conv-VAE encoder and omit detect (< 0.1 %)."""
-    n_fft, hop, n_mels = mel.n_fft, mel.hop_length, mel.n_mels
+    Both include the conv-VAE encoder and omit detect (< 0.1 %); both are
+    read against the bf16 peak."""
+    n_fft, n_mels = mel.n_fft, mel.n_mels
     n_freq = n_fft // 2 + 1
-    frames = mel.num_samples // hop + 1
+    frames = mel.total_frames
     dense_equiv = frames * 2 * (2 * n_fft * n_freq + n_freq * n_mels)
 
-    t_pad = -(-frames // KERNEL_TILE_FRAMES) * KERNEL_TILE_FRAMES
-    R = n_fft // 128
-    macs = 0
-    for r in range(R // 2 + 1):
-        real = r == 0 or 2 * r == R  # a_im is exactly zero at r = 0 and R/2
-        macs += (2 if real else 4) * 128 * 128 + 128 * n_mels + R * 128 * (1 if real else 2)
-    kernel_actual = t_pad * 2 * macs
+    tile = ct_tile(n_fft, mel.hop_length, True)
+    kernel_actual = ct_mma_flops(mel, 1, -(-frames // tile) * tile, exact=True)
 
     t, m, cin = *vcfg.input_hw, 1
     enc_macs = 0
@@ -210,7 +218,6 @@ def main(argv=None) -> None:
         **device_header(dev),
         "tflops_kernel_actual": rate * fl["kernel_actual"] / 1e12,
         "tflops_dense_equiv": rate * fl["dense_equiv"] / 1e12,
-        "peak_tflops_fp32_h100": H100_PEAK_FP32_FLOPS / 1e12,
         "peak_tflops_bf16_h100": H100_PEAK_BF16_FLOPS / 1e12,
         "converged": {name: leg[2] for name, leg in out.items()},
         "windows": {name: leg[1] for name, leg in out.items()},

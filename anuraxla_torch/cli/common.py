@@ -1,5 +1,8 @@
-"""Shared CLI plumbing — the port of ``anuraxla/cli/common.py``'s serving
-flags: the mel flags, ``--serving-tier`` and the three knobs a tier bundles.
+"""Shared CLI plumbing — the port of ``anuraxla/cli/common.py``: the mel,
+device and encoder flags, ``--serving-tier`` and the three knobs a tier
+bundles, and the project-root resolution of ``--config`` and ``--root``
+(relative paths resolve against the project root, not the working
+directory, as in the reference).
 
 The tier table names the port's backends (the reference's ``pallas`` is
 ``cuda`` here, ``pallas-bf16`` is ``cuda-bf16``). ``--data-parallel`` and
@@ -10,9 +13,16 @@ serving, int8) and are not flags here yet.
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 
 from anuraxla_torch.constants import MelConfig
 from anuraxla_torch.ops.frontend import BACKENDS
+from anuraxla_torch.utils.io import find_project_root, resolve_root_dir
+
+__all__ = [
+    "add_mel_args", "add_device_arg", "add_encoder_args", "add_batch_args", "mel_from_args", "session_kwargs",
+    "resolve_config", "project_root_here", "resolve_root_dir",
+]
 
 
 def add_mel_args(p: argparse.ArgumentParser) -> None:
@@ -23,6 +33,20 @@ def add_mel_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fmax", type=float, default=15000.0)
     p.add_argument("--hop-length", type=int, default=384)
     p.add_argument("--n-fft", type=int, default=2048)
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default: the card) or 'cpu' (the kernels' plain versions)")
+
+
+def add_encoder_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--encoder", type=str, default=None,
+        help="encoder artifact dir (encoder.msgpack + encoder.json, written by "
+        "either package); defaults to <project_root>/models/anuraxla_vae_encoder_v0, "
+        "falling back to a seeded init (with a warning) if absent",
+    )
 
 
 def add_batch_args(p: argparse.ArgumentParser) -> None:
@@ -128,3 +152,16 @@ def mel_from_args(args, duration: float) -> MelConfig:
         n_fft=args.n_fft,
         target_frames=args.target_frames,
     )
+
+
+def resolve_config(config_arg: str, project_root: Path) -> Path:
+    cfg_path = Path(config_arg)
+    if not cfg_path.is_absolute():
+        cfg_path = (project_root / cfg_path).resolve()
+    if not cfg_path.exists():
+        raise SystemExit(f"❌ config.json not found at: {cfg_path}")
+    return cfg_path
+
+
+def project_root_here() -> Path:
+    return find_project_root(Path.cwd())

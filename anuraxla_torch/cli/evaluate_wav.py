@@ -3,8 +3,9 @@ detector (reference ``09_evaluate_wav_detection.py``: accept iff
 ||z − mu_k|| <= rk, priority tie-break; exit code 0 = detected, 2 = not).
 
 ``detect_species()`` is the library entry; it takes a loaded session so the
-encoder is never reloaded per call. The encoder's weights come from
-``--init-seed`` (a seeded init): the artifact loader is not ported yet.
+encoder is never reloaded per call. ``--config`` resolves against the
+project root (``cli.common.resolve_config``); the encoder is ``--encoder``,
+else the project's default artifact, else a seeded init (``--init-seed``).
 
     python -m anuraxla_torch.cli.evaluate_wav --wav clip.wav --config config.json
     python -m anuraxla_torch.cli.evaluate_wav --wav clip.wav --serving-tier fast
@@ -24,7 +25,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from anuraxla_torch.cli.common import add_batch_args, add_mel_args, mel_from_args, session_kwargs
+from anuraxla_torch.cli.common import (
+    add_batch_args, add_device_arg, add_encoder_args, add_mel_args, mel_from_args, project_root_here, resolve_config,
+    session_kwargs,
+)
 from anuraxla_torch.config import get_chunk_seconds, load_config, priority_ranks, read_radial
 from anuraxla_torch.detect.radial import radial_decide
 from anuraxla_torch.pipeline.dataset import load_wav_batch
@@ -57,9 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--wav", required=True, type=str)
     p.add_argument("--config", type=str, default="config.json")
-    p.add_argument("--device", type=str, default="cuda", help="'cuda' (default) or 'cpu'")
-    p.add_argument("--init-seed", type=int, default=0, help="seed of the encoder's random init")
+    add_device_arg(p)
+    p.add_argument("--init-seed", type=int, default=0, help="seed of the encoder's random init (no artifact)")
     add_mel_args(p)
+    add_encoder_args(p)
     add_batch_args(p)
     p.set_defaults(batch_size=1)
     return p
@@ -67,15 +72,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    cfg_path = Path(args.config).expanduser().resolve()
-    if not cfg_path.exists():
-        raise SystemExit(f"❌ config.json not found at: {cfg_path}")
+    project_root = project_root_here()
+    cfg_path = resolve_config(args.config, project_root)
     wav = Path(args.wav).expanduser().resolve()
     if not wav.exists():
         raise SystemExit(f"❌ WAV not found: {wav}")
     mel = mel_from_args(args, get_chunk_seconds(load_config(cfg_path)))
     session = EncoderSession(
-        mel=mel, device=args.device, init_seed=args.init_seed, **session_kwargs(args),
+        mel=mel, device=args.device, init_seed=args.init_seed, project_root=project_root,
+        encoder_dir=Path(args.encoder) if args.encoder else None, **session_kwargs(args),
     ).load()
     detected, sp, best_d = detect_species(wav, session, cfg_path)
     if detected:

@@ -55,3 +55,11 @@ DEFAULT_MEL = MelConfig()
 RMS_TARGET: float = 0.05
 RMS_SILENCE_GATE: float = 1e-4
 RMS_EPS: float = 1e-8
+
+#: Latent-encode cache directory name (``08_fit_radial_detector.py:432``).
+CACHE_DIR_NAME = "cache_npz"
+
+#: Default encoder artifact directory under the project root, the JAX
+#: package's (``encoder.msgpack`` + ``encoder.json``, read by
+#: ``models.checkpoint``).
+DEFAULT_ENCODER_DIR = "models/anuraxla_vae_encoder_v0"

@@ -19,7 +19,9 @@ Backends:
 - ``"matmul-bf16"``: the same with the matmul operands rounded to bf16.
 The JAX package names its kernel backends ``pallas`` / ``pallas-bf16``; the
 matmul names are shared, so a cache key also carries a framework tag
-(``pipeline.session.session_fingerprint``).
+(``pipeline.session.session_fingerprint``), and it names the arithmetic that
+runs (``arithmetic_backend``): a kernel backend on a CPU tensor runs the
+plain version.
 """
 
 from __future__ import annotations
@@ -94,6 +96,17 @@ def resolved_backend(cfg: MelConfig, backend: str) -> str:
     if backend.startswith("cuda") and not kernel_takes(cfg):
         return backend.replace("cuda", "matmul")
     return backend
+
+
+def arithmetic_backend(cfg: MelConfig, backend: str, device) -> str:
+    """The name of the arithmetic that runs for (cfg, backend) on
+    ``device``, for cache keys: ``resolved_backend``, and for a kernel backend
+    off the card, where ``mel_power`` runs its plain version (plain f32 or
+    plain bf16, not the card's tensor-core sums), ``<backend>-cpuplain``."""
+    name = resolved_backend(cfg, backend)
+    if name.startswith("cuda") and torch.device(device).type != "cuda":
+        return f"{name}-cpuplain"
+    return name
 
 
 def log_mel_batch(

@@ -1,19 +1,23 @@
 """Load-once inference session: wav rows -> latents on the card — the port
-of ``anuraxla/pipeline/session.py``'s ``EncoderSession``.
+of ``anuraxla/pipeline/session.py`` (``EncoderSession``, the fingerprints,
+``encode_species_tree`` and the latent helpers).
 
-The served path: decoded rows (optionally already in the mel kernel's
-pre-padded layout) go to the device through a pinned host buffer with a
-non-blocking copy; the device computes the fused RMS scale over the valid
-slice, the log-mel frontend (``backend="cuda"`` / ``"cuda-bf16"``: a Hopper
-mel kernel; ``parity=False``: the crop-first fast frontend), and the
-encoder's ``mu``. ``encode_paths`` keeps two batches in flight: it
-fetches batch i−1's latents only after batch i is dispatched, while the next
-batch decodes on a prefetch thread.
+The served path: ``encode_paths`` decodes each batch (native decoder, on a
+prefetch thread) straight into a slot of the session's host ring — pinned
+buffers on a card, in the mel kernel's pre-padded layout when
+``pre_padded_host`` is set — and sends that slot to the device with a
+non-blocking copy; no host copy lies between decoder and link. The device
+computes the fused RMS scale over the valid slice, the log-mel frontend
+(``backend="cuda"`` / ``"cuda-bf16"``: a Hopper mel kernel;
+``parity=False``: the crop-first fast frontend), and the encoder's ``mu``.
+Two batches are in flight: batch i−1's latents are fetched only after batch
+i is dispatched, while batch i+1 decodes. ``encode_array`` copies its rows
+into a slot (PCM16-converted with ``transfer_int16``).
 
-Weights: ``load(params=state_dict)`` (e.g. from
-``models.convert.encoder_state_from_jax``) or, with no params, a seeded
-random init (``init_seed``). The encoder artifact loader (flax msgpack) is
-not ported yet.
+Weights: ``load(params=state_dict)``, else the encoder artifact
+(``encoder_dir``, else ``<project_root>/models/anuraxla_vae_encoder_v0``;
+``models.checkpoint``), else a seeded random init (``init_seed``), with a
+warning.
 
 ``session_fingerprint`` is the latent-cache key: everything that changes
 latents, plus a framework tag so that no key of this package equals one of
@@ -23,20 +27,92 @@ the JAX package (both name a ``matmul`` backend).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
+import random as pyrandom
+import threading
+import time
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from anuraxla_torch import resolve_device
-from anuraxla_torch.constants import MelConfig
-from anuraxla_torch.models.vae import ConvVAEEncoder, VAEConfig, init_encoder_params
-from anuraxla_torch.ops.frontend import BACKENDS, log_mel_batch, mel_to_encoder_input, resolved_backend, rms_scale_batch
+from anuraxla_torch.constants import CACHE_DIR_NAME, MelConfig
+from anuraxla_torch.models.checkpoint import load_or_init_encoder
+from anuraxla_torch.models.vae import ConvVAEEncoder, VAEConfig
+from anuraxla_torch.ops.frontend import (
+    BACKENDS, arithmetic_backend, log_mel_batch, mel_to_encoder_input, rms_scale_batch,
+)
 from anuraxla_torch.ops.mel_kernel import kernel_takes, phase_padded_layout
-from anuraxla_torch.pipeline.dataset import iter_batches
+from anuraxla_torch.pipeline.dataset import iter_batches, scan_species_tree, subsample_paths
+
+HOST_SLOTS = 3  # slots of a host ring: batch i+1 decodes while i transfers and i−1 may still be copying
+
+
+PCM16_BLOCK = 16  # rows a step of to_pcm16: a 19 MB temporary at 294 912-sample rows
+
+
+def to_pcm16(src: np.ndarray, dst: np.ndarray) -> None:
+    """``dst[...] = clip(round(src * 32768), -32768, 32767)`` as int16, the
+    reference's conversion (rounding half to even, in f32), a few rows at a
+    time through one small temporary with torch's threaded kernels: a
+    whole-batch numpy temporary costs a page fault every 4 KB and one core."""
+    s, d, b = torch.from_numpy(src), torch.from_numpy(dst), PCM16_BLOCK
+    tmp = torch.empty((min(b, s.shape[0]), s.shape[1]), dtype=torch.float32)
+    for i in range(0, s.shape[0], b):
+        q = torch.mul(s[i : i + b], 32768.0, out=tmp[: min(b, s.shape[0] - i)])
+        d[i : i + b].copy_(q.round_().clamp_(-32768, 32767))
+
+
+class HostRing:
+    """Host buffers that rows are written into before their transfer: a few
+    slots of one shape and dtype, pinned on a card, used in turn.
+
+    Each slot's transfer records a CUDA event, and ``claim`` hands the slot
+    out again only after that event has completed, so a writer on another
+    thread (the prefetch thread decoding the next batch) never overwrites
+    rows that a non-blocking copy is still reading. The buffers start
+    zeroed; writers fill only the sample window of a row, so the pre-padded
+    layout's pad columns stay zero."""
+
+    def __init__(self, shape: Tuple[int, int], dtype: torch.dtype, device: torch.device):
+        self.device = device
+        self.bufs = [torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda") for _ in range(HOST_SLOTS)]
+        self.views = [b.numpy() for b in self.bufs]
+        self._sent: List[Optional[torch.cuda.Event]] = [None] * HOST_SLOTS
+        self._next = 0
+        self._lock = threading.Lock()
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return tuple(self.bufs[0].shape)
+
+    def claim(self) -> np.ndarray:
+        """The next slot's rows, once the transfer that last read it is done."""
+        with self._lock:
+            k = self._next
+            self._next = (k + 1) % len(self.bufs)
+        if self._sent[k] is not None:
+            self._sent[k].synchronize()
+        return self.views[k]
+
+    def holds(self, rows: np.ndarray) -> bool:
+        return any(rows is v for v in self.views)
+
+    def send(self, rows: np.ndarray) -> torch.Tensor:
+        """A claimed slot -> device: a non-blocking copy on a card (its event
+        recorded after it), the buffer itself on the CPU."""
+        k = next(i for i, v in enumerate(self.views) if v is rows)
+        if self.device.type != "cuda":
+            return self.bufs[k]
+        out = self.bufs[k].to(self.device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._sent[k] = done
+        return out
 
 
 @dataclasses.dataclass
@@ -45,6 +121,10 @@ class EncoderSession:
 
     mel: MelConfig
     batch_size: int = 64
+    # encoder artifact dir (encoder.msgpack + encoder.json); None: the
+    # default artifact under project_root, else a seeded init
+    encoder_dir: Optional[Path] = None
+    project_root: Path = Path(".")
     parity: bool = True  # False: the crop-first fast frontend
     backend: str = "cuda"  # "cuda" | "cuda-bf16" | "matmul" | "matmul-bf16"
     encoder_cfg: VAEConfig = dataclasses.field(default_factory=VAEConfig)
@@ -60,7 +140,7 @@ class EncoderSession:
     add_noise_db: Optional[float] = None
     noise_seed: int = 0
     num_threads: int = 16
-    init_seed: int = 0  # seeded weights when load() gets no params
+    init_seed: int = 0  # seeded weights when there are no params and no artifact
     device: str = "cuda"
     latent_dim: int = 0
 
@@ -68,21 +148,21 @@ class EncoderSession:
         self._dev = resolve_device(self.device)
         if self.encoder_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"encoder_dtype must be float32 or bfloat16, got {self.encoder_dtype!r}")
+        if params is None:
+            params, self.encoder_cfg = load_or_init_encoder(
+                self.encoder_dir, Path(self.project_root), seed=self.init_seed, cfg=self.encoder_cfg)
         cfg = dataclasses.replace(self.encoder_cfg, dtype=self.encoder_dtype)
         if tuple(cfg.input_hw) != (self.mel.target_frames, self.mel.n_mels):
             raise ValueError(
                 f"encoder expects input {cfg.input_hw}, mel config produces "
                 f"({self.mel.target_frames}, {self.mel.n_mels})"
             )
-        if params is None:
-            params = init_encoder_params(cfg, torch.Generator().manual_seed(self.init_seed))
         enc = ConvVAEEncoder(cfg)
         enc.load_state_dict(params)
         self._enc = enc.eval().to(self._dev)
         self._enc_cfg = cfg
         self.latent_dim = cfg.latent_dim
-        self._pinned = [None, None]
-        self._slot = 0
+        self._rings: Dict[torch.dtype, HostRing] = {}
         self._setup_layout()
         return self
 
@@ -127,17 +207,19 @@ class EncoderSession:
             self._setup_layout()
         return self
 
-    def _inject_noise(self, audio: np.ndarray, start_idx: int, n_valid: int) -> np.ndarray:
+    def _inject_noise(self, audio: np.ndarray, start_idx: int, n_valid: int, *, copy: bool = True) -> np.ndarray:
         """Row-deterministic broadband noise at ``add_noise_db`` SNR, seeded
         by (noise_seed, global row index); the SNR references each row's RMS
-        over the valid region."""
+        over the valid region. ``copy=False`` adds it in place (the decoded
+        rows of a host slot)."""
         if self.add_noise_db is None:
             return audio
         off = 0
         if self._layout is not None and audio.shape[1] != self.mel.num_samples:
             off = self._layout[1]
         L = self.mel.num_samples
-        audio = np.array(audio, np.float32, copy=True)
+        if copy:
+            audio = np.array(audio, np.float32, copy=True)
         factor = 10.0 ** (-float(self.add_noise_db) / 20.0)
         for i in range(int(n_valid)):
             seg = audio[i, off : off + L]
@@ -149,20 +231,33 @@ class EncoderSession:
             np.clip(seg, -1.0, 1.0, out=seg)
         return audio
 
+    def _ring(self, shape: Tuple[int, int], dtype: torch.dtype) -> HostRing:
+        """The session's host ring of ``dtype``, made anew when the batch
+        shape changes."""
+        ring = self._rings.get(dtype)
+        if ring is None or ring.shape != tuple(shape):
+            ring = self._rings[dtype] = HostRing(tuple(shape), dtype, self._dev)
+        return ring
+
     def _to_device(self, audio: np.ndarray) -> torch.Tensor:
-        """Host rows -> device. On CUDA: through one of two pinned buffers
-        (alternating, so a buffer is rewritten only after the batch that used
-        it was fetched) with a non-blocking copy."""
-        if self._dev.type != "cuda":
-            return torch.from_numpy(audio)
-        self._slot ^= 1
-        buf = self._pinned[self._slot]
-        dt = torch.from_numpy(audio[:0]).dtype
-        if buf is None or tuple(buf.shape) != audio.shape or buf.dtype != dt:
-            buf = torch.empty(audio.shape, dtype=dt, pin_memory=True)
-            self._pinned[self._slot] = buf
-        buf.numpy()[...] = audio
-        return buf.to(self._dev, non_blocking=True)
+        """Host rows -> device through a host ring. A slot of the f32 ring
+        (``encode_paths`` decoded into it) goes as it is; other rows — raw
+        [B, num_samples] (staged into the pre-padded layout where the session
+        uses it) or already in the session's row layout — are written into a
+        slot first, PCM16-converted with ``transfer_int16``."""
+        f32 = self._rings.get(torch.float32)
+        if not self.transfer_int16 and f32 is not None and f32.holds(audio):
+            return f32.send(audio)
+        row_len, col = (self._layout if self._layout is not None and audio.shape[1] == self.mel.num_samples
+                        else (audio.shape[1], 0))
+        ring = self._ring((audio.shape[0], row_len), torch.int16 if self.transfer_int16 else torch.float32)
+        rows = ring.claim()
+        window = rows[:, col : col + audio.shape[1]]
+        if self.transfer_int16 and audio.dtype != np.int16:
+            to_pcm16(audio, window)
+        else:
+            window[...] = audio
+        return ring.send(rows)
 
     def _forward(self, audio: torch.Tensor) -> torch.Tensor:
         if self.transfer_int16:
@@ -183,21 +278,25 @@ class EncoderSession:
 
     def _dispatch(self, audio: np.ndarray) -> torch.Tensor:
         """Start the device computation for one batch without fetching."""
-        if self._layout is not None and audio.shape[1] == self.mel.num_samples:
-            # raw [B, num_samples] rows: stage into the pre-padded layout
-            row_len, off = self._layout
-            staged = np.zeros((audio.shape[0], row_len), np.float32)
-            staged[:, off : off + self.mel.num_samples] = audio
-            audio = staged
-        if self.transfer_int16 and audio.dtype != np.int16:
-            audio = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
         with torch.inference_mode():
-            return self._forward(self._to_device(np.ascontiguousarray(audio)))
+            return self._forward(self._to_device(audio))
 
     def encode_array(self, audio: np.ndarray) -> np.ndarray:
         """[B, num_samples] (or pre-padded) waveforms -> [B, D] latents."""
-        audio = self._inject_noise(np.asarray(audio, np.float32), 0, audio.shape[0])
+        audio = self._inject_noise(np.ascontiguousarray(audio, np.float32), 0, audio.shape[0])
         return self._dispatch(audio).cpu().numpy()[: audio.shape[0]]
+
+    def decoded_batches(self, paths: Sequence[Path]):
+        """``iter_batches`` over ``paths`` as ``encode_paths`` runs it: each
+        batch decoded into a slot of the session's f32 host ring (its
+        ``audio`` is that slot), noise added there in place."""
+        row_len = self._layout[0] if self._layout is not None else self.mel.num_samples
+        ring = self._ring((self.batch_size, row_len), torch.float32)
+        noise = functools.partial(self._inject_noise, copy=False) if self.add_noise_db is not None else None
+        return iter_batches(
+            paths, sr=self.mel.sr, num_samples=self.mel.num_samples, batch_size=self.batch_size,
+            num_threads=self.num_threads, layout=self._layout, transform=noise, buffers=ring.claim,
+        )
 
     def encode_paths(self, paths: Sequence[Path]) -> Tuple[np.ndarray, np.ndarray, List[Optional[str]]]:
         """Decode+encode a path list. Returns (Z [N, D], ok [N], errors [N])."""
@@ -207,12 +306,7 @@ class EncoderSession:
         errors: List[Optional[str]] = [None] * N
         pos = 0
         pending = None  # (device_result, start, n_valid)
-        for batch, n_valid in iter_batches(
-            paths, sr=self.mel.sr, num_samples=self.mel.num_samples,
-            batch_size=self.batch_size, num_threads=self.num_threads,
-            layout=self._layout,
-            transform=self._inject_noise if self.add_noise_db is not None else None,
-        ):
+        for batch, n_valid in self.decoded_batches(paths):
             ok[pos : pos + n_valid] = batch.ok[:n_valid]
             errors[pos : pos + n_valid] = batch.errors[:n_valid]
             cur = (self._dispatch(batch.audio), pos, n_valid)
@@ -245,10 +339,11 @@ FRAMEWORK_TAG = "torch"
 
 def session_fingerprint(session: EncoderSession) -> str:
     """Cache key of a loaded session, covering everything that changes
-    latents: mel parameters, frontend mode, the EFFECTIVE backend
-    (``resolved_backend``: a kernel backend on a config no kernel takes runs
-    matmul math), the encoder weights (digest of the ``state_dict`` in sorted
-    key order), the architecture (hash of the config, its compute dtype
+    latents: mel parameters, frontend mode, the arithmetic that runs
+    (``arithmetic_backend``: a kernel backend on a config no kernel takes
+    runs matmul math, and on the CPU its plain version, not the card's
+    split), the encoder weights (digest of the ``state_dict`` in sorted key
+    order), the architecture (hash of the config, its compute dtype
     included), int16 transfer, device-side normalization and noise injection.
     The backend is prefixed with :data:`FRAMEWORK_TAG`, so no key equals one of
     the JAX package, whose ``matmul`` backends share their names with this
@@ -266,7 +361,7 @@ def session_fingerprint(session: EncoderSession) -> str:
     arch = hashlib.blake2b(json.dumps(d, sort_keys=True).encode(), digest_size=6).hexdigest()
     fp = (
         f"{mel_fingerprint(session.mel)}_p{int(session.parity)}"
-        f"_{FRAMEWORK_TAG}-{resolved_backend(session.mel, session.backend)}"
+        f"_{FRAMEWORK_TAG}-{arithmetic_backend(session.mel, session.backend, session._dev)}"
         f"_e{h.hexdigest()}_a{arch}"
         + ("_i16" if session.transfer_int16 else "")
         + ("_ndev" if session.normalize_on_device else "")
@@ -274,3 +369,109 @@ def session_fingerprint(session: EncoderSession) -> str:
     )
     session._fingerprint = fp
     return fp
+
+
+def encode_species_tree(
+    session: EncoderSession,
+    chunks_dir: Path,
+    species: Sequence[str],
+    *,
+    cache: bool = False,
+    cache_dir: Optional[Path] = None,
+    max_per_class: int = 0,
+    seed: int = 123,
+    cache_tag: str = "",
+    log=print,
+) -> Tuple[Dict[str, np.ndarray], Dict[str, int], Dict[str, int]]:
+    """Per-species encode with an optional .npz cache and subsampling.
+    Returns (Z_by_species, failed_counts, used_counts); species with no wavs
+    or no successful encodes are omitted.
+
+    The archive holds the reference's fields — ``Z``, ``failed``, ``root``
+    (the resolved source root), ``mel_fp`` (the session's fingerprint),
+    ``sub`` (the subsampling request) and ``files`` (a digest of the folder's
+    file list) — and is stale when any of them is missing or differs."""
+    tree = scan_species_tree(chunks_dir, species)
+    rng = pyrandom.Random(seed)  # seeded once; draws consume sequential state
+    if cache:
+        cache_dir = Path(cache_dir) if cache_dir else Path(CACHE_DIR_NAME)
+        cache_dir.mkdir(parents=True, exist_ok=True)
+
+    Z_by: Dict[str, np.ndarray] = {}
+    failed: Dict[str, int] = {}
+    used: Dict[str, int] = {}
+    fp = session_fingerprint(session)
+    root_key = str(Path(chunks_dir).resolve())
+    sub_key = f"{max_per_class}:{seed}" if max_per_class else "all"
+
+    for sp in species:
+        wavs = tree.get(sp, [])
+        files_key = hashlib.sha1("\n".join(p.name for p in wavs).encode()).hexdigest()[:16]
+        cpath = cache_path_for(cache_dir, chunks_dir, sp, cache_tag) if cache else None
+        if cpath is not None and cpath.exists():
+            data = np.load(cpath, allow_pickle=False)
+            stale = any(k not in data or str(data[k]) != v
+                        for k, v in (("mel_fp", fp), ("root", root_key), ("sub", sub_key), ("files", files_key)))
+            if not stale:
+                Zm = data["Z"].astype(np.float32)
+                Z_by[sp] = Zm
+                failed[sp] = int(data["failed"]) if "failed" in data else 0
+                used[sp] = int(Zm.shape[0])
+                log(f"🧊 {sp}: cache {cpath.name} -> N={Zm.shape[0]}")
+                continue
+            log(f"♻️ {sp}: cache stale (mel/frontend/encoder/root/subsample/file-list changed), re-encoding")
+
+        if not wavs:
+            log(f"⚠️ {sp}: no wavs under {Path(chunks_dir) / sp} (skipped)")
+            continue
+        wavs = subsample_paths(wavs, max_per_class, rng)
+
+        t0 = time.perf_counter()
+        Z, ok, _errors = session.encode_paths(wavs)
+        rate = len(wavs) / max(time.perf_counter() - t0, 1e-9)
+        n_fail = int((~ok).sum())
+        if ok.sum() == 0:
+            log(f"❌ {sp}: nothing could be encoded (skipped)")
+            continue
+        Zm = Z[ok]
+        Z_by[sp] = Zm
+        failed[sp] = n_fail
+        used[sp] = int(Zm.shape[0])
+        log(f"🧪 {sp}: encoded N={Zm.shape[0]} (failed={n_fail}) [{rate:.1f} chunks/s]")
+
+        if cpath is not None:
+            np.savez_compressed(cpath, Z=Zm, failed=n_fail, root=root_key, mel_fp=fp, sub=sub_key, files=files_key)
+            log(f"   ↳ cached: {cpath.name}")
+
+    return Z_by, failed, used
+
+
+def concat_species_latents(Z_by: Dict[str, np.ndarray], species: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+    """{sp: [N, D]} -> (Z [N_total, D], true_idx [N_total]) with labels
+    indexed by position in ``species``; species absent from Z_by are skipped."""
+    present = [(i, sp) for i, sp in enumerate(species) if sp in Z_by]
+    if not present:
+        raise SystemExit(
+            "❌ no evaluation latents: none of the species "
+            f"{list(species)} had encodable wavs (wrong --val-root?)"
+        )
+    Z = np.concatenate([Z_by[sp] for _, sp in present])
+    true_idx = np.concatenate([np.full(len(Z_by[sp]), i, np.int32) for i, sp in present])
+    return Z, true_idx
+
+
+def pad_species_latents(Z_by: Dict[str, np.ndarray]) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """Ragged {sp: [N_sp, D]} -> (species order, Z [K, Nmax, D], mask [K, Nmax])
+    — the fixed-shape layout ``detect.fit_*`` expect."""
+    species = list(Z_by.keys())
+    if not species:
+        raise ValueError("no encoded species")
+    Nmax = max(z.shape[0] for z in Z_by.values())
+    D = next(iter(Z_by.values())).shape[1]
+    Z = np.zeros((len(species), Nmax, D), np.float32)
+    mask = np.zeros((len(species), Nmax), bool)
+    for i, sp in enumerate(species):
+        n = Z_by[sp].shape[0]
+        Z[i, :n] = Z_by[sp]
+        mask[i, :n] = True
+    return species, Z, mask

@@ -24,7 +24,21 @@ failure exits non-zero):
    plain version, its bound and one PyTorch library call computing the same
    function (the exact dense kernel at B = 256, the shape of earlier runs, and
    at B = 1024), with the frame tile each kernel took;
-5. the kernel study, after every serving phase so that those run as they did
+5. the fit path at full width (balanced tier): a synthetic tree of 4 species x
+   48 WAVs and an encoder artifact written by ``save_encoder``;
+   ``fit_radial_tree`` and ``fit_map_tree`` (LDA full; QDA diag, shrink 0.1)
+   on the card, the species-tree cache read back, ``evaluate_wav`` and
+   ``evaluate_wav_map`` served from the written config.json on six held-out
+   WAVs, launch counts and decode routes set to 0 just before and read just
+   after (``mel_power_ct`` and the native decoder must move, the Python
+   reader must not); the same fits on the CPU from the card's latents held to
+   the card's (centroids, rk, means 1e-5; logdets, tau 1e-4; decisions
+   identical) and the CLIs' exit codes to the CPU fits' decisions; times of
+   the fits and of ``encode_paths`` at B = 1024 over 4096 paths by three
+   decode routes (the Python reader with a copy into the pinned slot, the
+   native decoder into the slot, the same with ``transfer_int16``), each
+   with one batch's decode, copy and transfer;
+6. the kernel study, after every serving phase so that those run as they did
    before it existed: hold the split-bf16 tensor-core kernel
    (``fused_dots=True``) to its plain version, exact and bf16, at
    ``DEFAULT_MEL`` pre-padded, at the fast tier's frame range, at hop 320 and
@@ -37,8 +51,8 @@ failure exits non-zero):
    and bf16), the stage split and the three-leg bench, through the ``main`` of
    each module of ``anuraxla_torch.probes`` and of ``anuraxla_torch.bench``
    (the split kernel's counts must move there); time the split kernel;
-6. print the kernels line, the card's name and power limit, and last the
-   device line.
+7. print the kernels line (``mel_power_ct``'s also with its launches on the
+   fit path), the card's name and power limit, and last the device line.
 
 ``--dense-checkpoints`` is a diagnostic: it also times the dense kernel between
 the phases and, last, with its fragment tables uploaded again at other
@@ -155,19 +169,6 @@ def mel_work(cfg, fb: np.ndarray, B: int, T: int, L: int):
     tables = (2 * n_half * 128 * 128 + n_half * 128 * cfg.n_mels + cfg.n_fft) * 4
     nbytes = B * L * 4 + B * 4 + tables + B * T * cfg.n_mels * 4
     return float(flops_frame * B * T + B * min(L, cfg.num_samples)), nbytes
-
-
-def ct_mma_flops(cfg, B: int, T: int, exact: bool) -> float:
-    """Tensor-core flops the Cooley-Tukey kernel's form does: per r the
-    128-deep products of a_re (and a_im for a complex r) into x_re and x_im of
-    128 bins, then the power against the merged filterbank (mels rounded up to
-    8), three passes in the exact mode; its own work, not its bound."""
-    R = cfg.n_fft // 128
-    fma = 0
-    for r in range(R // 2 + 1):
-        comps = 1 if r == 0 or 2 * r == R else 2
-        fma += comps * 2 * 128 * 128 + 128 * 8 * -(-cfg.n_mels // 8)
-    return 2.0 * (3 if exact else 1) * fma * B * T
 
 
 def ct_split_flops(cfg, B: int, T: int, exact: bool) -> float:
@@ -625,6 +626,7 @@ def time_kernel(kernel: str, label: str, B: int, rng, *, exact: bool, algorithm:
     """Kernel, plain version (``plain=False``: not timed, where its operands
     would not fit the card), library call (CUDA events) and the bound, at one
     config and batch."""
+    from anuraxla_torch.bench import ct_mma_flops
     from anuraxla_torch.ops import mel_kernel as mk
     from anuraxla_torch.ops.mel import mel_filterbank
     from anuraxla_torch.probes.common import cuda_ms
@@ -814,6 +816,302 @@ def phase_times(seed: int, rng, profile: bool = False, checkpoint=lambda where: 
     return out
 
 
+FIT_FILES = 48  # WAVs of each species in the fit phase's tree
+FIT_TIMING_PATHS = 4096  # paths of each timed encode_paths run (the tree's files, listed again and again)
+# the card's fit against the same fit on the CPU from the same latents: only
+# the fit arithmetic differs (sum order; cuSOLVER against LAPACK). Vectors
+# (centroids, MAP means) are held per species to rtol of their largest
+# component, where a near-zero component carries no relative precision of its own
+FIT_RTOL = 1e-5  # centroids, rk, MAP means
+FIT_RTOL_LOGDET = 1e-4  # logdets and tau
+
+
+def write_tree(root: Path, cfg, rng) -> list:
+    """root/chunks/<species>/: FIT_FILES WAVs of each species in
+    PRIORITY_ORDER, 5 s at 48 kHz PCM16, each species a tone band of its own
+    (centre jittered per file, gated on and off) plus noise; and six held-out
+    WAVs beside it: one from each band, one out of every band, one of noise.
+    -> the held-out paths."""
+    from anuraxla_torch.constants import PRIORITY_ORDER
+    from anuraxla_torch.utils.wavio import write_wav
+
+    t = np.arange(cfg.num_samples) / cfg.sr
+    bands = [700.0, 1900.0, 3700.0, 6500.0]
+
+    def chunk(f):
+        tone = np.sin(2 * np.pi * f * t) * (rng.random(t.size) > 0.4) if f else 0.0
+        return (0.3 * tone + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
+
+    for sp, f0 in zip(PRIORITY_ORDER, bands):
+        (root / "chunks" / sp).mkdir(parents=True)
+        for i in range(FIT_FILES):
+            f = f0 * (1 + 0.05 * rng.standard_normal())
+            write_wav(root / "chunks" / sp / f"{sp}_{i:03d}.wav", chunk(f), cfg.sr)
+    held = []
+    for i, f in enumerate(bands + [12000.0, 0.0]):
+        held.append(root / f"held_{i}.wav")
+        write_wav(held[-1], chunk(f), cfg.sr)
+    return held
+
+
+def row_rel_err(a: np.ndarray, b: np.ndarray) -> float:
+    """max |a − b| of each row over that row's max |b|, the worst row."""
+    return float((np.abs(a - b).max(axis=1) / np.abs(b).max(axis=1)).max())
+
+
+def copy_route(sess, paths) -> None:
+    """``encode_paths`` as it ran before the native decoder: the Python
+    reader into a new array for each batch, then a copy into the pinned slot
+    (``_to_device`` copies rows it does not hold) and the transfer, two
+    batches in flight."""
+    from anuraxla_torch.pipeline.dataset import iter_batches
+
+    pending = None
+    for batch, _ in iter_batches(paths, sr=sess.mel.sr, num_samples=sess.mel.num_samples,
+                                 batch_size=sess.batch_size, num_threads=sess.num_threads, use_native=False,
+                                 layout=sess._layout):
+        cur = sess._dispatch(batch.audio)
+        if pending is not None:
+            pending.cpu()
+        pending = cur
+    pending.cpu()
+
+
+def host_split(sess, paths, route: str, reps: int = 2) -> dict:
+    """One batch's host side, each step timed on its own (the fastest of
+    ``reps``): decode (the Python reader into a new array, or the native
+    decoder into the pinned slot), copy (the Python route's copy into the
+    pinned slot; with ``transfer_int16`` the PCM16 conversion into the int16
+    slot; none on the native route) and transfer (the non-blocking copy to
+    the card, synchronized). -> {step: ms}."""
+    from anuraxla_torch.pipeline.dataset import load_wav_batch
+    from anuraxla_torch.pipeline.session import to_pcm16
+
+    B, (row_len, off) = sess.batch_size, sess._layout
+    kw = dict(sr=sess.mel.sr, num_samples=sess.mel.num_samples, num_threads=sess.num_threads, layout=sess._layout)
+    f32 = sess._ring((B, row_len), torch.float32)
+    best = {}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        if route == "python":
+            rows = load_wav_batch(paths[:B], use_native=False, **kw).audio
+        else:
+            rows = f32.claim()
+            load_wav_batch(paths[:B], out=rows, **kw)
+        t1 = time.perf_counter()
+        if route == "python":
+            ring, slot = f32, f32.claim()
+            slot[...] = rows
+        elif route == "native-int16":
+            ring = sess._ring((B, row_len), torch.int16)
+            slot = ring.claim()
+            to_pcm16(rows, slot)  # as EncoderSession._to_device converts
+        else:
+            ring, slot = f32, rows
+        t2 = time.perf_counter()
+        ring.send(slot)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in (("decode", t1 - t0), ("copy", t2 - t1), ("transfer", t3 - t2)):
+            best[k] = min(best.get(k, np.inf), v * 1e3)
+    return best
+
+
+def phase_fit_path(seed: int, rng) -> dict:
+    """This slice's main path at full width (``DEFAULT_MEL``, default
+    ``VAEConfig``, balanced tier, pre-padded host rows): a synthetic species
+    tree encoded through the native decoder and ``mel_power_ct``, the radial
+    fit and two MAP fits (LDA full; QDA diag, shrink 0.1) on the card, the
+    species-tree cache read back, and both detectors served from the written
+    config.json through the CLIs' ``main`` — launch counts and decode routes
+    set to 0 just before, read just after. The same fits on the CPU from the
+    card's latents are held to the card's; the CLIs' exit codes to the CPU
+    fits' decisions. Then ``encode_paths`` timed at B = 1024 over 4096 paths
+    by three decode routes, with the host side split. -> {"launches":
+    launches of mel_power_ct on the path, "chunks_per_s": {route: ...}}."""
+    import argparse as ap
+
+    from anuraxla_torch.cli import evaluate_wav, evaluate_wav_map
+    from anuraxla_torch.cli.common import session_kwargs
+    from anuraxla_torch.config import priority_ranks
+    from anuraxla_torch.constants import DEFAULT_MEL as cfg
+    from anuraxla_torch.constants import PRIORITY_ORDER
+    from anuraxla_torch.detect.gaussian_map import fit_map, map_decide
+    from anuraxla_torch.detect.radial import fit_radial, radial_decide
+    from anuraxla_torch.models.checkpoint import save_encoder
+    from anuraxla_torch.models.vae import VAEConfig, init_encoder_params
+    from anuraxla_torch.ops.mel_kernel import mel_power, reset_launches
+    from anuraxla_torch.pipeline.dataset import load_wav_batch
+    from anuraxla_torch.pipeline.fit import fit_map_tree, fit_radial_tree
+    from anuraxla_torch.pipeline.session import EncoderSession, encode_species_tree
+    from anuraxla_torch.probes.common import card_line
+
+    smi = card_line()
+    out = {"chunks_per_s": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        held = write_tree(root, cfg, rng)
+        enc_dir = save_encoder(root / "encoder", VAEConfig(), init_encoder_params(
+            VAEConfig(), torch.Generator().manual_seed(seed + 6)))
+        cfg_path = root / "config.json"
+        cfg_path.write_text(json.dumps({"species": list(PRIORITY_ORDER), "chunk_seconds": cfg.duration}))
+        log(f"[fit-path] tree of {len(PRIORITY_ORDER)} species x {FIT_FILES} WAVs (5 s, 48 kHz, PCM16) + "
+            f"{len(held)} held out, encoder artifact by save_encoder: {time.perf_counter() - t0:.2f} s")
+
+        balanced = session_kwargs(ap.Namespace(serving_tier="balanced", batch_size=64, io_threads=8,
+                                               pre_padded_host=True))
+        sess = EncoderSession(mel=cfg, encoder_dir=enc_dir, project_root=root, **balanced).load()
+        lines = []
+        fit_kw = dict(cfg_path=cfg_path, chunks_dir=root / "chunks", session=sess, cache=True,
+                      cache_dir=root / "cache", max_per_class=0, seed=123, log=lines.append)
+        map_kw = dict(priors_mode="empirical", eps=1e-6, tau_q=0.01)
+
+        reset_launches()  # count only the fit path from here
+        routes0 = dict(load_wav_batch.routes)
+        t0 = time.perf_counter()
+        radial = fit_radial_tree(cfg=json.loads(cfg_path.read_text()), q_in=0.95, q_out=0.01, **fit_kw)
+        t_radial_tree = time.perf_counter() - t0
+        lda = fit_map_tree(cfg=json.loads(cfg_path.read_text()), cov_type="lda", cov_structure="full", shrink=0.0,
+                           **map_kw, **fit_kw)
+        qda = fit_map_tree(cfg=json.loads(cfg_path.read_text()), cov_type="qda", cov_structure="diag", shrink=0.1,
+                           **map_kw, **fit_kw)
+        again, _, _ = encode_species_tree(sess, root / "chunks", PRIORITY_ORDER, cache=True, cache_dir=root / "cache",
+                                          log=lines.append)
+        cached = sum("🧊" in line for line in lines)
+        for line in lines:
+            if line.startswith("✅") or "encoded N=" in line:
+                log(f"[fit-path]   {line}")
+        if cached != 3 * len(PRIORITY_ORDER):
+            raise AssertionError(f"fit path: {cached} species read back from the cache, not {3 * len(PRIORITY_ORDER)}")
+        for i, sp in enumerate(radial["species"]):
+            if not np.array_equal(again[sp], radial["Z"][i][radial["mask"][i]]):
+                raise AssertionError(f"fit path: {sp}'s cached latents differ from the encoded ones")
+
+        # serving from the written file: the radial block (fit_radial_tree) and
+        # the MAP block (the QDA fit, written last)
+        exits = {}
+        for name, main, argv in (("evaluate_wav", evaluate_wav.main, ["--serving-tier", "balanced"]),
+                                 ("evaluate_wav_map", evaluate_wav_map.main, [])):
+            exits[name] = []
+            for wav in held:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    try:
+                        main(["--wav", str(wav), "--config", str(cfg_path), "--encoder", str(enc_dir), *argv])
+                    except SystemExit as e:
+                        exits[name].append(e.code)
+                log(f"[fit-path]   {name} {wav.name}: {buf.getvalue().strip()} (exit {exits[name][-1]})")
+        torch.cuda.synchronize()
+        counts = dict(mel_power.launches)
+        routes = {k: load_wav_batch.routes[k] - routes0[k] for k in routes0}
+        log(f"[fit-path] fit_radial_tree ({t_radial_tree:.2f} s with the encode), fit_map_tree x 2 and "
+            f"encode_species_tree from the cache, {len(held)} WAVs x 2 CLIs: launches {counts}; decode routes {routes}")
+        if counts["mel_power_ct"] <= 0:
+            raise AssertionError("the fit path did not launch mel_power_ct")
+        if routes["native"] <= 0 or routes["python"]:
+            raise AssertionError(f"the fit path did not decode through the native decoder alone: {routes}")
+        out["launches"] = counts["mel_power_ct"]
+
+        # the same fits on the CPU, from the card's latents
+        def on(dev, *arrays):
+            return [torch.from_numpy(a).to(dev) for a in arrays]
+
+        Zr, mr = on("cpu", radial["Z"], radial["mask"])
+        cpu_r = fit_radial(Zr, mr, 0.95, 0.01)
+        card_r = radial["fit"]
+        flat = radial["Z"][radial["mask"]]
+        ranks = priority_ranks(radial["species"])
+        errs = {"centroids": row_rel_err(card_r.centroids.cpu().numpy(), cpu_r.centroids.numpy()),
+                "rk": float((card_r.rk.cpu() / cpu_r.rk - 1).abs().max())}
+        dec_card = [v.cpu() for v in radial_decide(*on("cuda", flat), card_r.centroids, card_r.rk,
+                                                   *on("cuda", ranks))]
+        dec_cpu = radial_decide(*on("cpu", flat), cpu_r.centroids, cpu_r.rk, *on("cpu", ranks))
+        same = [bool(torch.equal(dec_card[0], dec_cpu[0]) and torch.equal(dec_card[1], dec_cpu[1]))]
+        cpu_maps = {}
+        for name, res, kw in (("lda", lda, dict(cov_type="lda", cov_structure="full", shrink=0.0)),
+                              ("qda", qda, dict(cov_type="qda", cov_structure="diag", shrink=0.1))):
+            cpu_m = cpu_maps[name] = fit_map(*on("cpu", res["Z"], res["mask"]), **kw, **map_kw)
+            card_m = res["fit"]
+            errs[f"{name} means"] = row_rel_err(card_m.means.cpu().numpy(), cpu_m.means.numpy())
+            errs[f"{name} logdets"] = float((card_m.logdets.cpu() / cpu_m.logdets - 1).abs().max())
+            errs[f"{name} tau"] = abs(float(card_m.tau) / float(cpu_m.tau) - 1)
+            zf = res["Z"][res["mask"]]
+            dc = map_decide(*on("cuda", zf), card_m.means, card_m.precisions, card_m.logdets, card_m.priors, card_m.tau)
+            dp = map_decide(*on("cpu", zf), cpu_m.means, cpu_m.precisions, cpu_m.logdets, cpu_m.priors, cpu_m.tau)
+            same.append(bool(torch.equal(dc[0].cpu(), dp[0]) and torch.equal(dc[1].cpu(), dp[1])))
+            log(f"[fit-path] {name}: {int(dp[0].sum())} of {len(zf)} training latents detected; tau card "
+                f"{float(card_m.tau):.6f}, CPU {float(cpu_m.tau):.6f}")
+        log(f"[fit-path] card vs CPU fit on the card's latents, relative errors: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (gates {FIT_RTOL} / {FIT_RTOL_LOGDET}); decisions identical on every training latent "
+            f"(radial, lda, qda): {same}; radial detects {int(dec_cpu[0].sum())} of {len(flat)}")
+        gates = {k: (FIT_RTOL_LOGDET if ("logdet" in k or "tau" in k) else FIT_RTOL) for k in errs}
+        bad = {k: v for k, v in errs.items() if not v <= gates[k]}
+        if bad or not all(same):
+            raise AssertionError(f"the card's fits disagree with the CPU's: {bad}, decisions identical {same}")
+
+        # the CLIs' exit codes against the CPU fits' decisions on the same latents
+        Zh = {}
+        for name, kw in (("evaluate_wav", dict(balanced, pre_padded_host=False)), ("evaluate_wav_map", {})):
+            s = EncoderSession(mel=cfg, encoder_dir=enc_dir, project_root=root, **dict(kw, batch_size=1)).load()
+            Zh[name], ok, err = s.encode_paths(held)
+            if not ok.all():
+                raise AssertionError(f"held-out WAVs: {err}")
+        det_r = radial_decide(torch.from_numpy(Zh["evaluate_wav"]), cpu_r.centroids, cpu_r.rk,
+                              torch.from_numpy(ranks))[0]
+        m = cpu_maps["qda"]
+        det_m = map_decide(torch.from_numpy(Zh["evaluate_wav_map"]), m.means, m.precisions, m.logdets, m.priors,
+                           m.tau)[0]
+        want = {"evaluate_wav": [0 if d else 2 for d in det_r.tolist()],
+                "evaluate_wav_map": [0 if d else 2 for d in det_m.tolist()]}
+        log(f"[fit-path] exit codes {exits}; the CPU fits' decisions {want}")
+        if exits != want:
+            raise AssertionError(f"served exit codes {exits} differ from the CPU fits' decisions {want}")
+
+        # the fits alone on the card, the second call of each (the first builds cuSOLVER's handles)
+        Zc, mc = on("cuda", qda["Z"], qda["mask"])
+        fit_ms = {}
+        for name, fn in (("fit_radial", lambda: fit_radial(Zc, mc, 0.95, 0.01)),
+                         ("fit_map lda full", lambda: fit_map(Zc, mc, cov_type="lda", cov_structure="full", **map_kw)),
+                         ("fit_map qda diag", lambda: fit_map(Zc, mc, cov_type="qda", cov_structure="diag",
+                                                               shrink=0.1, **map_kw))):
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                fit_ms[name] = (time.perf_counter() - t0) * 1e3
+        log(f"[times] fits on the card, {int(mc.sum())} latents of 128 dims in {mc.shape[0]} species (host clock, "
+            f"synchronized): " + ", ".join(f"{k} {v:.2f} ms" for k, v in fit_ms.items()) + f"; {smi}")
+
+        # encode_paths at B = 1024 over 4096 paths: the tree's files listed
+        # again and again, so after the first pass they sit in the page cache
+        files = sorted((root / "chunks").rglob("*.wav"))
+        paths = [files[i % len(files)] for i in range(FIT_TIMING_PATHS)]
+        kw = dict(balanced, batch_size=TIMING_B)
+        for label, split_route, i16, fn in (("python reader + copy", "python", False, copy_route),
+                                             ("native into pinned", "native", False, None),
+                                             ("native + transfer_int16", "native-int16", True, None)):
+            s = EncoderSession(mel=cfg, encoder_dir=enc_dir, project_root=root, **dict(kw, transfer_int16=i16)).load()
+            run = (lambda ps: fn(s, ps)) if fn else s.encode_paths
+            run(paths[:TIMING_B])  # warm-up: the pinned slots, cuDNN's choices, the page cache
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(paths)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            out["chunks_per_s"][label] = FIT_TIMING_PATHS / dt
+            split = host_split(s, paths, split_route)
+            log(f"[times] encode_paths {label}, balanced tier, B={TIMING_B} x {FIT_TIMING_PATHS // TIMING_B} batches "
+                f"(pre-padded rows, {'int16' if i16 else 'f32'} on the link; files in the page cache): "
+                f"{dt:.3f} s = {FIT_TIMING_PATHS / dt:.1f} chunks/s; one batch's host side alone: "
+                + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items()) + f"; {smi}")
+            del s
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_study_times(rng) -> dict:
     """-> {kernel: times} of the split kernel, at the shapes of rows 1 and 2."""
     return {
@@ -864,6 +1162,7 @@ def main() -> None:
         checkpoint(f"tables uploaded again behind {mb} MB held", shift_mb=mb)
     if args.dense_checkpoints is not None:
         dense_strides()
+    fit = phase_fit_path(args.seed, np.random.default_rng([args.seed, 6]))
     study_rng = np.random.default_rng([args.seed, 3])
     errors.update(phase_kernel_vs_plain(STUDY_CASES, study_rng))
     launches.update(phase_study_path())
@@ -876,13 +1175,15 @@ def main() -> None:
             "launches": launches[name], "max_abs_err": errors[name][0], "max_rel_err": errors[name][1],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "tile": t["tile"],
+            **({"launches_fit_path": fit["launches"]} if name == "mel_power_ct" else {}),
         })
     from anuraxla_torch.probes.common import card_line
 
     smi = card_line()
     cps = times["chunks_per_s"]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; chunks/s at B=1024: "
-        f"balanced {cps['balanced']:.1f}, fast {cps['fast']:.1f}")
+        f"balanced {cps['balanced']:.1f}, fast {cps['fast']:.1f}; encode_paths (balanced): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in fit["chunks_per_s"].items()))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@ mode against its plain PyTorch version (exact: 2e-5 of each row's max, the
 exact tier's bound; bf16: 3e-3 for the largest difference — a flipped bf16
 rounding of a dominant power value, as chip_smoke.py shows against f64 sums —
 and 2e-5 for the mean), launch counting
-by kernel and mode, the wrapper's refusals on a CUDA tensor, and the sessions
-on the card against the same sessions on the CPU.
+by kernel and mode, the wrapper's refusals on a CUDA tensor, the sessions
+on the card against the same sessions on the CPU (``encode_paths`` through
+the pinned host slots too), and the radial and MAP fits on the card against
+the same fits on the CPU.
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. The
 card's machine has no JAX, so this file imports none and runs without the
@@ -457,3 +459,94 @@ def test_cli_serving_tier_on_card(card, tier, tmp_path, capsys):
             assert e.value.code == code
             assert mark in capsys.readouterr().out
             assert _launches() == dict(n0, **{counter: n0[counter] + (device == "cuda")})
+
+
+def _latents(K=4, n=48, D=128, seed=9):
+    """Padded [K, n, D] latents, one cluster per species, a ragged last class."""
+    rng = np.random.default_rng(seed)
+    centers = 2.0 * rng.standard_normal((K, D))
+    Z = (centers[:, None, :] + rng.standard_normal((K, n, D))).astype(np.float32)
+    mask = np.ones((K, n), bool)
+    mask[-1, n - 7:] = False
+    return Z, mask
+
+
+def _row_rel(a, b):
+    return float((np.abs(a - b).max(axis=1) / np.abs(b).max(axis=1)).max())
+
+
+def test_fits_on_card_match_cpu(card):
+    """The radial and MAP fits on the card against the same fits on the CPU
+    from the same latents (``chip_smoke.py``'s gates): centroids, rk and means
+    within 1e-5 (vectors of their largest component), logdets and tau within
+    1e-4, identical decisions on every training latent."""
+    from anuraxla_torch.detect.gaussian_map import fit_map, map_decide
+    from anuraxla_torch.detect.radial import fit_radial, radial_decide
+
+    Z, mask = _latents()
+    on = {d: (torch.from_numpy(Z).to(d), torch.from_numpy(mask).to(d)) for d in ("cuda", "cpu")}
+    flat = {d: on[d][0][on[d][1]] for d in on}
+    ranks = torch.arange(4, dtype=torch.float32)
+    rg, rc = (fit_radial(*on[d], 0.95, 0.01) for d in ("cuda", "cpu"))
+    assert _row_rel(rg.centroids.cpu().numpy(), rc.centroids.numpy()) <= 1e-5
+    np.testing.assert_allclose(rg.rk.cpu().numpy(), rc.rk.numpy(), rtol=1e-5)
+    dg = radial_decide(flat["cuda"], rg.centroids, rg.rk, ranks.cuda())
+    dc = radial_decide(flat["cpu"], rc.centroids, rc.rk, ranks)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(dg[:2], dc[:2]))
+    for kw in (dict(cov_type="lda", cov_structure="full"), dict(cov_type="qda", cov_structure="diag", shrink=0.1),
+               dict(cov_type="qda", cov_structure="full", shrink=0.1, priors_mode="uniform")):
+        mg, mc = (fit_map(*on[d], tau_q=0.01, **kw) for d in ("cuda", "cpu"))
+        assert _row_rel(mg.means.cpu().numpy(), mc.means.numpy()) <= 1e-5, kw
+        np.testing.assert_allclose(mg.logdets.cpu().numpy(), mc.logdets.numpy(), rtol=1e-4)
+        np.testing.assert_allclose(float(mg.tau), float(mc.tau), rtol=1e-4)
+        dg = map_decide(flat["cuda"], mg.means, mg.precisions, mg.logdets, mg.priors, mg.tau)
+        dc = map_decide(flat["cpu"], mc.means, mc.precisions, mc.logdets, mc.priors, mc.tau)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(dg[:2], dc[:2])), kw
+
+
+def test_quantiles_and_non_pd_repair_on_card(card):
+    from anuraxla_torch.ops.linalg import inv_and_logdet
+    from anuraxla_torch.ops.quantiles import masked_quantile
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((6, 40)).astype(np.float32)
+    m = rng.random((6, 40)) > 0.3
+    m[5] = False
+    for q in (0.01, 0.5, [0.05, 0.95]):
+        got = masked_quantile(torch.from_numpy(x).cuda(), torch.from_numpy(m).cuda(), q).cpu()
+        assert torch.equal(got, masked_quantile(torch.from_numpy(x), torch.from_numpy(m), q))
+    q, _ = np.linalg.qr(rng.standard_normal((6, 6)))
+    mats = np.stack([q @ np.diag([1.0, 2, 3, 0.5, 0.2, ev]) @ q.T for ev in (0.1, -5e-4, -0.5)]).astype(np.float32)
+    mats = (mats + mats.transpose(0, 2, 1)) / 2
+    pg, lg = inv_and_logdet(torch.from_numpy(mats).cuda())
+    pc, lc = inv_and_logdet(torch.from_numpy(mats))
+    np.testing.assert_allclose(lg[:2].cpu().numpy(), lc[:2].numpy(), rtol=1e-4)
+    np.testing.assert_allclose(pg[:2].cpu().numpy(), pc[:2].numpy(), rtol=1e-3, atol=1e-3)
+    assert torch.isnan(lg[2]) and torch.isnan(lc[2])
+
+
+def test_encode_paths_through_pinned_slots_on_card(card, tmp_path):
+    """``encode_paths`` decodes into pinned slots and sends them as they are:
+    its latents equal ``encode_array``'s (rows copied into a slot), clean,
+    noised in place and over PCM16; more batches than slots, so every slot
+    is written again after its transfer."""
+    from anuraxla_torch.pipeline.dataset import load_wav_batch
+
+    cfg = DEFAULT_MEL.replace(duration=1.0)
+    rng = np.random.default_rng(12)
+    paths = []
+    for i in range(10):
+        paths.append(tmp_path / f"c{i}.wav")
+        write_wav(paths[-1], (0.1 * rng.standard_normal(cfg.num_samples)).astype(np.float32), cfg.sr)
+    rows = load_wav_batch(paths, sr=cfg.sr, num_samples=cfg.num_samples).audio
+    for kw in (dict(pre_padded_host=True), dict(pre_padded_host=True, transfer_int16=True), dict(add_noise_db=6.0)):
+        s = EncoderSession(mel=cfg, batch_size=2, normalize_on_device=True, init_seed=3, project_root=tmp_path,
+                           **kw).load()
+        Z, ok, _ = s.encode_paths(paths)
+        assert ok.all() and all(b.is_pinned() for b in s._rings[torch.float32].bufs)
+        if "add_noise_db" in kw:  # the noise is seeded by each row's index in the whole list
+            want = [s._dispatch(s._inject_noise(rows[i : i + 2], i, 2)).cpu().numpy() for i in range(0, 10, 2)]
+        else:
+            want = [s.encode_array(rows[i : i + 2]) for i in range(0, 10, 2)]
+        want = np.concatenate(want)
+        assert np.array_equal(Z, want), kw

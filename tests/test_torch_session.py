@@ -2,8 +2,8 @@
 ``radial_decide``, the WAV loader, noise injection, and the whole path at
 full width (DEFAULT_MEL, default VAEConfig, 3 WAVs) — the port's
 ``EncoderSession`` -> ``detect_species`` against JAX's on the same params.
-Also the import guard: the port and chip_smoke.py import no JAX, flax or
-``anuraxla``."""
+Also the import guard: the port and chip_smoke.py import no JAX, flax,
+msgpack or ``anuraxla``."""
 
 import ast
 import json
@@ -204,8 +204,10 @@ def test_port_imports_no_jax():
     covered = {str(f.relative_to(REPO)) for f in files}
     assert {"anuraxla_torch/bench.py", "anuraxla_torch/probes/common.py", "anuraxla_torch/probes/kernel_variants.py",
             "anuraxla_torch/probes/phase_variants.py", "anuraxla_torch/probes/kernel_ablation.py",
-            "anuraxla_torch/probes/profile_stages.py"} <= covered
+            "anuraxla_torch/probes/profile_stages.py", "anuraxla_torch/native/wavloader.py",
+            "anuraxla_torch/models/checkpoint.py", "anuraxla_torch/pipeline/fit.py",
+            "anuraxla_torch/cli/fit_map.py"} <= covered
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "anuraxla"), (f, mod)
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "msgpack", "anuraxla"), (f, mod)
