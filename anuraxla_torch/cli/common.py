@@ -25,7 +25,7 @@ __all__ = [
 ]
 
 
-def add_mel_args(p: argparse.ArgumentParser) -> None:
+def add_mel_args(p: argparse.ArgumentParser, duration_default: float | None = None) -> None:
     p.add_argument("--sr", type=int, default=48000)
     p.add_argument("--n-mels", type=int, default=64)
     p.add_argument("--target-frames", type=int, default=192)
@@ -33,6 +33,8 @@ def add_mel_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fmax", type=float, default=15000.0)
     p.add_argument("--hop-length", type=int, default=384)
     p.add_argument("--n-fft", type=int, default=2048)
+    if duration_default is not None:
+        p.add_argument("--duration", type=float, default=duration_default)
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:

@@ -1,11 +1,12 @@
 """WAV I/O without librosa/soundfile — a copy of ``anuraxla/utils/wavio.py``
 (``_parse_wav_bytes``, ``resample``, ``read_wav``, ``write_wav``,
-``crop_or_pad_samples``; the streaming reader stays with the reference).
+``WavStream``, ``crop_or_pad_samples``).
 
 - a pure-NumPy RIFF/WAVE parser (PCM 8/16/24/32-bit and IEEE float32/64),
 - mono mixdown (mean over channels, matching librosa.to_mono),
 - polyphase resampling via scipy when the file rate differs from the target,
-- a PCM16 writer (what the reference's normalized datasets are stored as).
+- a PCM16 writer (what the reference's normalized datasets are stored as),
+- ``WavStream``, a memmap reader that serves windows of long recordings.
 """
 from __future__ import annotations
 
@@ -169,6 +170,96 @@ def write_wav(path: str | Path, y: np.ndarray, sr: int, *, subtype: str = "PCM_1
         ]
     )
     Path(path).write_bytes(out)
+
+
+class WavStream:
+    """Random-access streaming reader for long WAVs (multi-hour soundscapes).
+
+    Parses the header once, then serves float32 mono segments on demand via a
+    numpy memmap — a 2 h 48 kHz recording is windowed without ever holding
+    more than the requested segment in memory. Supports the memmap-friendly
+    encodings (PCM 16/32, float32/64); for exotic depths fall back to
+    ``read_wav``.
+    """
+
+    _MMAP_DTYPES = {
+        (WAVE_FORMAT_PCM, 16): ("<i2", 32768.0),
+        (WAVE_FORMAT_PCM, 32): ("<i4", 2147483648.0),
+        (WAVE_FORMAT_IEEE_FLOAT, 32): ("<f4", 1.0),
+        (WAVE_FORMAT_IEEE_FLOAT, 64): ("<f8", 1.0),
+    }
+
+    def __init__(self, path: str | Path):
+        self.path = Path(path)
+        with open(self.path, "rb") as f:
+            head = f.read(1 << 16)
+        if len(head) < 12 or head[0:4] != b"RIFF" or head[8:12] != b"WAVE":
+            raise ValueError("not a RIFF/WAVE file")
+        pos = 12
+        fmt = None
+        data_off = data_len = None
+        file_size = self.path.stat().st_size
+        while pos + 8 <= len(head):
+            cid = head[pos : pos + 4]
+            (size,) = struct.unpack_from("<I", head, pos + 4)
+            if cid == b"fmt ":
+                f_ = struct.unpack_from("<HHIIHH", head, pos + 8)
+                audio_format = f_[0]
+                if audio_format == WAVE_FORMAT_EXTENSIBLE and size >= 40:
+                    (audio_format,) = struct.unpack_from("<H", head, pos + 32)
+                fmt = (audio_format,) + f_[1:]
+            elif cid == b"data":
+                data_off = pos + 8
+                data_len = min(size, file_size - data_off)
+            pos += 8 + size + (size & 1)
+        if fmt is None or data_off is None:
+            raise ValueError("WAV missing fmt/data chunk (or data beyond 64KB header scan)")
+
+        self.format, self.channels, self.sr, _, _, self.bits = fmt
+        key = (self.format, self.bits)
+        if key not in self._MMAP_DTYPES:
+            raise ValueError(f"WavStream unsupported encoding {key}; use read_wav")
+        dt, self._scale = self._MMAP_DTYPES[key]
+        itemsize = np.dtype(dt).itemsize
+        n_values = data_len // itemsize
+        self.num_frames = n_values // self.channels
+        self._mm = np.memmap(self.path, dtype=dt, mode="r", offset=data_off,
+                             shape=(self.num_frames, self.channels))
+
+    @property
+    def duration_seconds(self) -> float:
+        return self.num_frames / self.sr
+
+    def read(self, start: int, n: int) -> np.ndarray:
+        """Mono float32 segment [n] at frame offset ``start`` (zero-padded
+        past EOF)."""
+        start = max(0, start)
+        stop = min(start + n, self.num_frames)
+        seg = np.asarray(self._mm[start:stop], dtype=np.float32) / self._scale
+        y = seg.mean(axis=1) if self.channels > 1 else seg[:, 0]
+        if y.shape[0] < n:
+            y = np.pad(y, (0, n - y.shape[0]))
+        return y.astype(np.float32)
+
+    @property
+    def is_pcm16_mono(self) -> bool:
+        return self.format == WAVE_FORMAT_PCM and self.bits == 16 and self.channels == 1
+
+    def read_i16(self, start: int, n: int) -> np.ndarray:
+        """Raw int16 segment [n] (PCM16 mono only; zero-padded past EOF) —
+        a pure memmap copy, no float conversion. ``read()`` for these files
+        is exactly ``read_i16().astype(float32) / 32768``, and the
+        transfer_int16 link re-quantization of that float is the identity,
+        so shipping this buffer directly is bitwise-equal to the float
+        round trip at zero host CPU cost."""
+        if not self.is_pcm16_mono:
+            raise ValueError("read_i16 requires a PCM16 mono stream")
+        start = max(0, start)
+        stop = min(start + n, self.num_frames)
+        y = np.asarray(self._mm[start:stop, 0])
+        if y.shape[0] < n:
+            y = np.pad(y, (0, n - y.shape[0]))
+        return y
 
 
 def crop_or_pad_samples(y: np.ndarray, num_samples: int) -> np.ndarray:

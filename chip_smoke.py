@@ -38,7 +38,29 @@ failure exits non-zero):
    decode routes (the Python reader with a copy into the pinned slot, the
    native decoder into the slot, the same with ``transfer_int16``), each
    with one batch's decode, copy and transfer;
-6. the kernel study, after every serving phase so that those run as they did
+6. the evaluation path at full width (balanced tier, pre-padded rows) on the
+   fit phase's project — its encoder artifact and the config.json it wrote —
+   through the ``main`` of each CLI run from the project root, launch counts
+   set to 0 just before each step and read just after (``mel_power_ct`` must
+   move, the split kernel must not): ``benchmark-folder`` and
+   ``benchmark-folder-map`` on a val tree of 4 species x 48 WAVs and one
+   truncated WAV (one ERROR row, ``summary.txt`` parsed by
+   ``spearman_analysis.parse_summary``, every decision equal to the same
+   decision on the CPU from the card's latents), ``--snr-sweep clean,20,8``
+   (its clean point equal to the benchmark), ``run-qout-grid`` in process
+   (q_out 0.10..0.25, ``--device-sweep --q-in-grid 0.90 0.95 0.99
+   --noise-margin-db 14 --analyze``: every point's artifacts, the sweep held
+   to the same sweep on the CPU from the card's latents and fit, and at q_in
+   0.95 to each point's ``summary.txt``), ``calibrate-tau --set-best`` (held to
+   ``map_tau_sweep`` on the CPU from the card's latents), and the fleet scan
+   ``scan-soundscape --root`` over 4 recordings x 10 min with planted calls at
+   hop 2.5 s (960 windows, B = 1024; RMS fused into the mel kernel with
+   ``--extract-dir``, then ``--no-normalize`` on pre-normalized audio): planted
+   windows detected as their species, the first batch equal to
+   ``encode_array`` on the card, 32 windows' parity-tier latents equal to the
+   CPU's; times of the benchmark's encode, the device sweep, each grid point
+   and the scan (windows/s, x realtime, extract and device ms a batch);
+7. the kernel study, after every serving phase so that those run as they did
    before it existed: hold the split-bf16 tensor-core kernel
    (``fused_dots=True``) to its plain version, exact and bf16, at
    ``DEFAULT_MEL`` pre-padded, at the fast tier's frame range, at hop 320 and
@@ -51,8 +73,8 @@ failure exits non-zero):
    and bf16), the stage split and the three-leg bench, through the ``main`` of
    each module of ``anuraxla_torch.probes`` and of ``anuraxla_torch.bench``
    (the split kernel's counts must move there); time the split kernel;
-7. print the kernels line (``mel_power_ct``'s also with its launches on the
-   fit path), the card's name and power limit, and last the device line.
+8. print the kernels line (``mel_power_ct``'s also with its launches on the
+   fit path; every kernel's on the evaluation path), the card's name and power limit, and last the device line.
 
 ``--dense-checkpoints`` is a diagnostic: it also times the dense kernel between
 the phases and, last, with its fragment tables uploaded again at other
@@ -66,9 +88,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import io
 import json
+import re
 import sys
 import tempfile
 import time
@@ -826,31 +850,43 @@ FIT_RTOL = 1e-5  # centroids, rk, MAP means
 FIT_RTOL_LOGDET = 1e-4  # logdets and tau
 
 
-def write_tree(root: Path, cfg, rng) -> list:
-    """root/chunks/<species>/: FIT_FILES WAVs of each species in
-    PRIORITY_ORDER, 5 s at 48 kHz PCM16, each species a tone band of its own
-    (centre jittered per file, gated on and off) plus noise; and six held-out
-    WAVs beside it: one from each band, one out of every band, one of noise.
-    -> the held-out paths."""
+BANDS = (700.0, 1900.0, 3700.0, 6500.0)  # each species' tone band, in PRIORITY_ORDER
+
+
+def tone_chunk(t: np.ndarray, rng, f: float) -> np.ndarray:
+    """A tone at ``f`` gated on and off, plus noise (noise alone for f = 0)."""
+    tone = np.sin(2 * np.pi * f * t) * (rng.random(t.size) > 0.4) if f else 0.0
+    return (0.3 * tone + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def write_species_files(d: Path, cfg, rng, n: int) -> None:
+    """d/<species>/: n WAVs of each species in PRIORITY_ORDER, one clip of
+    ``cfg`` each at 48 kHz PCM16, the species' band with its centre jittered
+    per file."""
     from anuraxla_torch.constants import PRIORITY_ORDER
     from anuraxla_torch.utils.wavio import write_wav
 
     t = np.arange(cfg.num_samples) / cfg.sr
-    bands = [700.0, 1900.0, 3700.0, 6500.0]
-
-    def chunk(f):
-        tone = np.sin(2 * np.pi * f * t) * (rng.random(t.size) > 0.4) if f else 0.0
-        return (0.3 * tone + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
-
-    for sp, f0 in zip(PRIORITY_ORDER, bands):
-        (root / "chunks" / sp).mkdir(parents=True)
-        for i in range(FIT_FILES):
+    for sp, f0 in zip(PRIORITY_ORDER, BANDS):
+        (d / sp).mkdir(parents=True)
+        for i in range(n):
             f = f0 * (1 + 0.05 * rng.standard_normal())
-            write_wav(root / "chunks" / sp / f"{sp}_{i:03d}.wav", chunk(f), cfg.sr)
+            write_wav(d / sp / f"{sp}_{i:03d}.wav", tone_chunk(t, rng, f), cfg.sr)
+
+
+def write_tree(root: Path, cfg, rng) -> list:
+    """root/chunks/<species>/: FIT_FILES WAVs of each species (5 s at 48 kHz
+    PCM16, each species a tone band of its own, gated on and off, plus
+    noise); and six held-out WAVs beside it: one from each band, one out of
+    every band, one of noise. -> the held-out paths."""
+    from anuraxla_torch.utils.wavio import write_wav
+
+    write_species_files(root / "chunks", cfg, rng, FIT_FILES)
+    t = np.arange(cfg.num_samples) / cfg.sr
     held = []
-    for i, f in enumerate(bands + [12000.0, 0.0]):
+    for i, f in enumerate(BANDS + (12000.0, 0.0)):
         held.append(root / f"held_{i}.wav")
-        write_wav(held[-1], chunk(f), cfg.sr)
+        write_wav(held[-1], tone_chunk(t, rng, f), cfg.sr)
     return held
 
 
@@ -917,7 +953,7 @@ def host_split(sess, paths, route: str, reps: int = 2) -> dict:
     return best
 
 
-def phase_fit_path(seed: int, rng) -> dict:
+def phase_fit_path(seed: int, rng, root: Path) -> dict:
     """This slice's main path at full width (``DEFAULT_MEL``, default
     ``VAEConfig``, balanced tier, pre-padded host rows): a synthetic species
     tree encoded through the native decoder and ``mel_power_ct``, the radial
@@ -948,168 +984,525 @@ def phase_fit_path(seed: int, rng) -> dict:
 
     smi = card_line()
     out = {"chunks_per_s": {}}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        held = write_tree(root, cfg, rng)
-        enc_dir = save_encoder(root / "encoder", VAEConfig(), init_encoder_params(
-            VAEConfig(), torch.Generator().manual_seed(seed + 6)))
-        cfg_path = root / "config.json"
-        cfg_path.write_text(json.dumps({"species": list(PRIORITY_ORDER), "chunk_seconds": cfg.duration}))
-        log(f"[fit-path] tree of {len(PRIORITY_ORDER)} species x {FIT_FILES} WAVs (5 s, 48 kHz, PCM16) + "
-            f"{len(held)} held out, encoder artifact by save_encoder: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    held = write_tree(root, cfg, rng)
+    enc_dir = save_encoder(root / "encoder", VAEConfig(), init_encoder_params(
+        VAEConfig(), torch.Generator().manual_seed(seed + 6)))
+    cfg_path = root / "config.json"
+    cfg_path.write_text(json.dumps({"species": list(PRIORITY_ORDER), "chunk_seconds": cfg.duration}))
+    log(f"[fit-path] tree of {len(PRIORITY_ORDER)} species x {FIT_FILES} WAVs (5 s, 48 kHz, PCM16) + "
+        f"{len(held)} held out, encoder artifact by save_encoder: {time.perf_counter() - t0:.2f} s")
 
-        balanced = session_kwargs(ap.Namespace(serving_tier="balanced", batch_size=64, io_threads=8,
-                                               pre_padded_host=True))
-        sess = EncoderSession(mel=cfg, encoder_dir=enc_dir, project_root=root, **balanced).load()
-        lines = []
-        fit_kw = dict(cfg_path=cfg_path, chunks_dir=root / "chunks", session=sess, cache=True,
-                      cache_dir=root / "cache", max_per_class=0, seed=123, log=lines.append)
-        map_kw = dict(priors_mode="empirical", eps=1e-6, tau_q=0.01)
+    balanced = session_kwargs(ap.Namespace(serving_tier="balanced", batch_size=64, io_threads=8,
+                                           pre_padded_host=True))
+    sess = EncoderSession(mel=cfg, encoder_dir=enc_dir, project_root=root, **balanced).load()
+    lines = []
+    fit_kw = dict(cfg_path=cfg_path, chunks_dir=root / "chunks", session=sess, cache=True,
+                  cache_dir=root / "cache", max_per_class=0, seed=123, log=lines.append)
+    map_kw = dict(priors_mode="empirical", eps=1e-6, tau_q=0.01)
 
-        reset_launches()  # count only the fit path from here
-        routes0 = dict(load_wav_batch.routes)
-        t0 = time.perf_counter()
-        radial = fit_radial_tree(cfg=json.loads(cfg_path.read_text()), q_in=0.95, q_out=0.01, **fit_kw)
-        t_radial_tree = time.perf_counter() - t0
-        lda = fit_map_tree(cfg=json.loads(cfg_path.read_text()), cov_type="lda", cov_structure="full", shrink=0.0,
-                           **map_kw, **fit_kw)
-        qda = fit_map_tree(cfg=json.loads(cfg_path.read_text()), cov_type="qda", cov_structure="diag", shrink=0.1,
-                           **map_kw, **fit_kw)
-        again, _, _ = encode_species_tree(sess, root / "chunks", PRIORITY_ORDER, cache=True, cache_dir=root / "cache",
-                                          log=lines.append)
-        cached = sum("🧊" in line for line in lines)
-        for line in lines:
-            if line.startswith("✅") or "encoded N=" in line:
-                log(f"[fit-path]   {line}")
-        if cached != 3 * len(PRIORITY_ORDER):
-            raise AssertionError(f"fit path: {cached} species read back from the cache, not {3 * len(PRIORITY_ORDER)}")
-        for i, sp in enumerate(radial["species"]):
-            if not np.array_equal(again[sp], radial["Z"][i][radial["mask"][i]]):
-                raise AssertionError(f"fit path: {sp}'s cached latents differ from the encoded ones")
+    reset_launches()  # count only the fit path from here
+    routes0 = dict(load_wav_batch.routes)
+    t0 = time.perf_counter()
+    radial = fit_radial_tree(cfg=json.loads(cfg_path.read_text()), q_in=0.95, q_out=0.01, **fit_kw)
+    t_radial_tree = time.perf_counter() - t0
+    lda = fit_map_tree(cfg=json.loads(cfg_path.read_text()), cov_type="lda", cov_structure="full", shrink=0.0,
+                       **map_kw, **fit_kw)
+    qda = fit_map_tree(cfg=json.loads(cfg_path.read_text()), cov_type="qda", cov_structure="diag", shrink=0.1,
+                       **map_kw, **fit_kw)
+    again, _, _ = encode_species_tree(sess, root / "chunks", PRIORITY_ORDER, cache=True, cache_dir=root / "cache",
+                                      log=lines.append)
+    cached = sum("🧊" in line for line in lines)
+    for line in lines:
+        if line.startswith("✅") or "encoded N=" in line:
+            log(f"[fit-path]   {line}")
+    if cached != 3 * len(PRIORITY_ORDER):
+        raise AssertionError(f"fit path: {cached} species read back from the cache, not {3 * len(PRIORITY_ORDER)}")
+    for i, sp in enumerate(radial["species"]):
+        if not np.array_equal(again[sp], radial["Z"][i][radial["mask"][i]]):
+            raise AssertionError(f"fit path: {sp}'s cached latents differ from the encoded ones")
 
-        # serving from the written file: the radial block (fit_radial_tree) and
-        # the MAP block (the QDA fit, written last)
-        exits = {}
-        for name, main, argv in (("evaluate_wav", evaluate_wav.main, ["--serving-tier", "balanced"]),
-                                 ("evaluate_wav_map", evaluate_wav_map.main, [])):
-            exits[name] = []
-            for wav in held:
-                buf = io.StringIO()
-                with contextlib.redirect_stdout(buf):
-                    try:
-                        main(["--wav", str(wav), "--config", str(cfg_path), "--encoder", str(enc_dir), *argv])
-                    except SystemExit as e:
-                        exits[name].append(e.code)
-                log(f"[fit-path]   {name} {wav.name}: {buf.getvalue().strip()} (exit {exits[name][-1]})")
-        torch.cuda.synchronize()
-        counts = dict(mel_power.launches)
-        routes = {k: load_wav_batch.routes[k] - routes0[k] for k in routes0}
-        log(f"[fit-path] fit_radial_tree ({t_radial_tree:.2f} s with the encode), fit_map_tree x 2 and "
-            f"encode_species_tree from the cache, {len(held)} WAVs x 2 CLIs: launches {counts}; decode routes {routes}")
-        if counts["mel_power_ct"] <= 0:
-            raise AssertionError("the fit path did not launch mel_power_ct")
-        if routes["native"] <= 0 or routes["python"]:
-            raise AssertionError(f"the fit path did not decode through the native decoder alone: {routes}")
-        out["launches"] = counts["mel_power_ct"]
+    # serving from the written file: the radial block (fit_radial_tree) and
+    # the MAP block (the QDA fit, written last)
+    exits = {}
+    for name, main, argv in (("evaluate_wav", evaluate_wav.main, ["--serving-tier", "balanced"]),
+                             ("evaluate_wav_map", evaluate_wav_map.main, [])):
+        exits[name] = []
+        for wav in held:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                try:
+                    main(["--wav", str(wav), "--config", str(cfg_path), "--encoder", str(enc_dir), *argv])
+                except SystemExit as e:
+                    exits[name].append(e.code)
+            log(f"[fit-path]   {name} {wav.name}: {buf.getvalue().strip()} (exit {exits[name][-1]})")
+    torch.cuda.synchronize()
+    counts = dict(mel_power.launches)
+    routes = {k: load_wav_batch.routes[k] - routes0[k] for k in routes0}
+    log(f"[fit-path] fit_radial_tree ({t_radial_tree:.2f} s with the encode), fit_map_tree x 2 and "
+        f"encode_species_tree from the cache, {len(held)} WAVs x 2 CLIs: launches {counts}; decode routes {routes}")
+    if counts["mel_power_ct"] <= 0:
+        raise AssertionError("the fit path did not launch mel_power_ct")
+    if routes["native"] <= 0 or routes["python"]:
+        raise AssertionError(f"the fit path did not decode through the native decoder alone: {routes}")
+    out["launches"] = counts["mel_power_ct"]
 
-        # the same fits on the CPU, from the card's latents
-        def on(dev, *arrays):
-            return [torch.from_numpy(a).to(dev) for a in arrays]
+    # the same fits on the CPU, from the card's latents
+    def on(dev, *arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
 
-        Zr, mr = on("cpu", radial["Z"], radial["mask"])
-        cpu_r = fit_radial(Zr, mr, 0.95, 0.01)
-        card_r = radial["fit"]
-        flat = radial["Z"][radial["mask"]]
-        ranks = priority_ranks(radial["species"])
-        errs = {"centroids": row_rel_err(card_r.centroids.cpu().numpy(), cpu_r.centroids.numpy()),
-                "rk": float((card_r.rk.cpu() / cpu_r.rk - 1).abs().max())}
-        dec_card = [v.cpu() for v in radial_decide(*on("cuda", flat), card_r.centroids, card_r.rk,
-                                                   *on("cuda", ranks))]
-        dec_cpu = radial_decide(*on("cpu", flat), cpu_r.centroids, cpu_r.rk, *on("cpu", ranks))
-        same = [bool(torch.equal(dec_card[0], dec_cpu[0]) and torch.equal(dec_card[1], dec_cpu[1]))]
-        cpu_maps = {}
-        for name, res, kw in (("lda", lda, dict(cov_type="lda", cov_structure="full", shrink=0.0)),
-                              ("qda", qda, dict(cov_type="qda", cov_structure="diag", shrink=0.1))):
-            cpu_m = cpu_maps[name] = fit_map(*on("cpu", res["Z"], res["mask"]), **kw, **map_kw)
-            card_m = res["fit"]
-            errs[f"{name} means"] = row_rel_err(card_m.means.cpu().numpy(), cpu_m.means.numpy())
-            errs[f"{name} logdets"] = float((card_m.logdets.cpu() / cpu_m.logdets - 1).abs().max())
-            errs[f"{name} tau"] = abs(float(card_m.tau) / float(cpu_m.tau) - 1)
-            zf = res["Z"][res["mask"]]
-            dc = map_decide(*on("cuda", zf), card_m.means, card_m.precisions, card_m.logdets, card_m.priors, card_m.tau)
-            dp = map_decide(*on("cpu", zf), cpu_m.means, cpu_m.precisions, cpu_m.logdets, cpu_m.priors, cpu_m.tau)
-            same.append(bool(torch.equal(dc[0].cpu(), dp[0]) and torch.equal(dc[1].cpu(), dp[1])))
-            log(f"[fit-path] {name}: {int(dp[0].sum())} of {len(zf)} training latents detected; tau card "
-                f"{float(card_m.tau):.6f}, CPU {float(cpu_m.tau):.6f}")
-        log(f"[fit-path] card vs CPU fit on the card's latents, relative errors: "
-            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-            + f" (gates {FIT_RTOL} / {FIT_RTOL_LOGDET}); decisions identical on every training latent "
-            f"(radial, lda, qda): {same}; radial detects {int(dec_cpu[0].sum())} of {len(flat)}")
-        gates = {k: (FIT_RTOL_LOGDET if ("logdet" in k or "tau" in k) else FIT_RTOL) for k in errs}
-        bad = {k: v for k, v in errs.items() if not v <= gates[k]}
-        if bad or not all(same):
-            raise AssertionError(f"the card's fits disagree with the CPU's: {bad}, decisions identical {same}")
+    Zr, mr = on("cpu", radial["Z"], radial["mask"])
+    cpu_r = fit_radial(Zr, mr, 0.95, 0.01)
+    card_r = radial["fit"]
+    flat = radial["Z"][radial["mask"]]
+    ranks = priority_ranks(radial["species"])
+    errs = {"centroids": row_rel_err(card_r.centroids.cpu().numpy(), cpu_r.centroids.numpy()),
+            "rk": float((card_r.rk.cpu() / cpu_r.rk - 1).abs().max())}
+    dec_card = [v.cpu() for v in radial_decide(*on("cuda", flat), card_r.centroids, card_r.rk,
+                                               *on("cuda", ranks))]
+    dec_cpu = radial_decide(*on("cpu", flat), cpu_r.centroids, cpu_r.rk, *on("cpu", ranks))
+    same = [bool(torch.equal(dec_card[0], dec_cpu[0]) and torch.equal(dec_card[1], dec_cpu[1]))]
+    cpu_maps = {}
+    for name, res, kw in (("lda", lda, dict(cov_type="lda", cov_structure="full", shrink=0.0)),
+                          ("qda", qda, dict(cov_type="qda", cov_structure="diag", shrink=0.1))):
+        cpu_m = cpu_maps[name] = fit_map(*on("cpu", res["Z"], res["mask"]), **kw, **map_kw)
+        card_m = res["fit"]
+        errs[f"{name} means"] = row_rel_err(card_m.means.cpu().numpy(), cpu_m.means.numpy())
+        errs[f"{name} logdets"] = float((card_m.logdets.cpu() / cpu_m.logdets - 1).abs().max())
+        errs[f"{name} tau"] = abs(float(card_m.tau) / float(cpu_m.tau) - 1)
+        zf = res["Z"][res["mask"]]
+        dc = map_decide(*on("cuda", zf), card_m.means, card_m.precisions, card_m.logdets, card_m.priors, card_m.tau)
+        dp = map_decide(*on("cpu", zf), cpu_m.means, cpu_m.precisions, cpu_m.logdets, cpu_m.priors, cpu_m.tau)
+        same.append(bool(torch.equal(dc[0].cpu(), dp[0]) and torch.equal(dc[1].cpu(), dp[1])))
+        log(f"[fit-path] {name}: {int(dp[0].sum())} of {len(zf)} training latents detected; tau card "
+            f"{float(card_m.tau):.6f}, CPU {float(cpu_m.tau):.6f}")
+    log(f"[fit-path] card vs CPU fit on the card's latents, relative errors: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (gates {FIT_RTOL} / {FIT_RTOL_LOGDET}); decisions identical on every training latent "
+        f"(radial, lda, qda): {same}; radial detects {int(dec_cpu[0].sum())} of {len(flat)}")
+    gates = {k: (FIT_RTOL_LOGDET if ("logdet" in k or "tau" in k) else FIT_RTOL) for k in errs}
+    bad = {k: v for k, v in errs.items() if not v <= gates[k]}
+    if bad or not all(same):
+        raise AssertionError(f"the card's fits disagree with the CPU's: {bad}, decisions identical {same}")
 
-        # the CLIs' exit codes against the CPU fits' decisions on the same latents
-        Zh = {}
-        for name, kw in (("evaluate_wav", dict(balanced, pre_padded_host=False)), ("evaluate_wav_map", {})):
-            s = EncoderSession(mel=cfg, encoder_dir=enc_dir, project_root=root, **dict(kw, batch_size=1)).load()
-            Zh[name], ok, err = s.encode_paths(held)
-            if not ok.all():
-                raise AssertionError(f"held-out WAVs: {err}")
-        det_r = radial_decide(torch.from_numpy(Zh["evaluate_wav"]), cpu_r.centroids, cpu_r.rk,
-                              torch.from_numpy(ranks))[0]
-        m = cpu_maps["qda"]
-        det_m = map_decide(torch.from_numpy(Zh["evaluate_wav_map"]), m.means, m.precisions, m.logdets, m.priors,
-                           m.tau)[0]
-        want = {"evaluate_wav": [0 if d else 2 for d in det_r.tolist()],
-                "evaluate_wav_map": [0 if d else 2 for d in det_m.tolist()]}
-        log(f"[fit-path] exit codes {exits}; the CPU fits' decisions {want}")
-        if exits != want:
-            raise AssertionError(f"served exit codes {exits} differ from the CPU fits' decisions {want}")
+    # the CLIs' exit codes against the CPU fits' decisions on the same latents
+    Zh = {}
+    for name, kw in (("evaluate_wav", dict(balanced, pre_padded_host=False)), ("evaluate_wav_map", {})):
+        s = EncoderSession(mel=cfg, encoder_dir=enc_dir, project_root=root, **dict(kw, batch_size=1)).load()
+        Zh[name], ok, err = s.encode_paths(held)
+        if not ok.all():
+            raise AssertionError(f"held-out WAVs: {err}")
+    det_r = radial_decide(torch.from_numpy(Zh["evaluate_wav"]), cpu_r.centroids, cpu_r.rk,
+                          torch.from_numpy(ranks))[0]
+    m = cpu_maps["qda"]
+    det_m = map_decide(torch.from_numpy(Zh["evaluate_wav_map"]), m.means, m.precisions, m.logdets, m.priors,
+                       m.tau)[0]
+    want = {"evaluate_wav": [0 if d else 2 for d in det_r.tolist()],
+            "evaluate_wav_map": [0 if d else 2 for d in det_m.tolist()]}
+    log(f"[fit-path] exit codes {exits}; the CPU fits' decisions {want}")
+    if exits != want:
+        raise AssertionError(f"served exit codes {exits} differ from the CPU fits' decisions {want}")
 
-        # the fits alone on the card, the second call of each (the first builds cuSOLVER's handles)
-        Zc, mc = on("cuda", qda["Z"], qda["mask"])
-        fit_ms = {}
-        for name, fn in (("fit_radial", lambda: fit_radial(Zc, mc, 0.95, 0.01)),
-                         ("fit_map lda full", lambda: fit_map(Zc, mc, cov_type="lda", cov_structure="full", **map_kw)),
-                         ("fit_map qda diag", lambda: fit_map(Zc, mc, cov_type="qda", cov_structure="diag",
-                                                               shrink=0.1, **map_kw))):
-            for _ in range(2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                fit_ms[name] = (time.perf_counter() - t0) * 1e3
-        log(f"[times] fits on the card, {int(mc.sum())} latents of 128 dims in {mc.shape[0]} species (host clock, "
-            f"synchronized): " + ", ".join(f"{k} {v:.2f} ms" for k, v in fit_ms.items()) + f"; {smi}")
-
-        # encode_paths at B = 1024 over 4096 paths: the tree's files listed
-        # again and again, so after the first pass they sit in the page cache
-        files = sorted((root / "chunks").rglob("*.wav"))
-        paths = [files[i % len(files)] for i in range(FIT_TIMING_PATHS)]
-        kw = dict(balanced, batch_size=TIMING_B)
-        for label, split_route, i16, fn in (("python reader + copy", "python", False, copy_route),
-                                             ("native into pinned", "native", False, None),
-                                             ("native + transfer_int16", "native-int16", True, None)):
-            s = EncoderSession(mel=cfg, encoder_dir=enc_dir, project_root=root, **dict(kw, transfer_int16=i16)).load()
-            run = (lambda ps: fn(s, ps)) if fn else s.encode_paths
-            run(paths[:TIMING_B])  # warm-up: the pinned slots, cuDNN's choices, the page cache
+    # the fits alone on the card, the second call of each (the first builds cuSOLVER's handles)
+    Zc, mc = on("cuda", qda["Z"], qda["mask"])
+    fit_ms = {}
+    for name, fn in (("fit_radial", lambda: fit_radial(Zc, mc, 0.95, 0.01)),
+                     ("fit_map lda full", lambda: fit_map(Zc, mc, cov_type="lda", cov_structure="full", **map_kw)),
+                     ("fit_map qda diag", lambda: fit_map(Zc, mc, cov_type="qda", cov_structure="diag",
+                                                           shrink=0.1, **map_kw))):
+        for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            run(paths)
+            fn()
             torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            out["chunks_per_s"][label] = FIT_TIMING_PATHS / dt
-            split = host_split(s, paths, split_route)
-            log(f"[times] encode_paths {label}, balanced tier, B={TIMING_B} x {FIT_TIMING_PATHS // TIMING_B} batches "
-                f"(pre-padded rows, {'int16' if i16 else 'f32'} on the link; files in the page cache): "
-                f"{dt:.3f} s = {FIT_TIMING_PATHS / dt:.1f} chunks/s; one batch's host side alone: "
-                + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items()) + f"; {smi}")
-            del s
-            torch.cuda.empty_cache()
+            fit_ms[name] = (time.perf_counter() - t0) * 1e3
+    log(f"[times] fits on the card, {int(mc.sum())} latents of 128 dims in {mc.shape[0]} species (host clock, "
+        f"synchronized): " + ", ".join(f"{k} {v:.2f} ms" for k, v in fit_ms.items()) + f"; {smi}")
+
+    # encode_paths at B = 1024 over 4096 paths: the tree's files listed
+    # again and again, so after the first pass they sit in the page cache
+    files = sorted((root / "chunks").rglob("*.wav"))
+    paths = [files[i % len(files)] for i in range(FIT_TIMING_PATHS)]
+    kw = dict(balanced, batch_size=TIMING_B)
+    for label, split_route, i16, fn in (("python reader + copy", "python", False, copy_route),
+                                         ("native into pinned", "native", False, None),
+                                         ("native + transfer_int16", "native-int16", True, None)):
+        s = EncoderSession(mel=cfg, encoder_dir=enc_dir, project_root=root, **dict(kw, transfer_int16=i16)).load()
+        run = (lambda ps: fn(s, ps)) if fn else s.encode_paths
+        run(paths[:TIMING_B])  # warm-up: the pinned slots, cuDNN's choices, the page cache
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(paths)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["chunks_per_s"][label] = FIT_TIMING_PATHS / dt
+        split = host_split(s, paths, split_route)
+        log(f"[times] encode_paths {label}, balanced tier, B={TIMING_B} x {FIT_TIMING_PATHS // TIMING_B} batches "
+            f"(pre-padded rows, {'int16' if i16 else 'f32'} on the link; files in the page cache): "
+            f"{dt:.3f} s = {FIT_TIMING_PATHS / dt:.1f} chunks/s; one batch's host side alone: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items()) + f"; {smi}")
+        del s
+        torch.cuda.empty_cache()
     return out
+
+
+EVAL_FILES = 48  # val WAVs of each species in the evaluation phase's tree
+SCAN_FILES, SCAN_SECONDS, SCAN_HOP_S = 4, 600, 2.5  # the fleet: 4 recordings x 10 min, a window every 2.5 s
+SCAN_CALLS = (50, 180, 310, 440)  # each recording's planted calls start here (s): 10 s of one species' band
+SCAN_CALL_S = 10
+SCAN_PARITY_ROWS = 32  # windows whose parity-tier latents are held to the CPU session
+# a window inside a planted call is an in-distribution sample of its species, which the fit's radius
+# (q_in 0.95) holds about 95 % of; a window of noise alone lies outside every band's radius
+SCAN_HIT_SHARE, SCAN_FALSE_SHARE = 0.85, 0.05
+EVAL_RTOL = 1e-5  # the device sweep's thresholds, card vs CPU from the same latents and fit
+TAU_RTOL = 1e-4  # calibrate-tau's taus, the card's MAP fit vs the CPU's from the same latents
+
+
+def write_recordings(d: Path, cfg, rng) -> dict:
+    """d/raw/site<r>/rec.wav: SCAN_FILES recordings of SCAN_SECONDS at 48 kHz
+    PCM16 mono, noise with a call planted at each of SCAN_CALLS (two 5 s
+    chunks of one species' band, species (r + j) % 4); d/norm/site<r>/rec.wav:
+    the same samples scaled to RMS 0.05. Every file has the same name, so the
+    fleet scan must key its outputs by the root-relative path. -> {site:
+    [(start s, species index)]}."""
+    from anuraxla_torch.utils.wavio import write_wav
+
+    t = np.arange(cfg.num_samples) / cfg.sr
+    planted = {}
+    for r in range(SCAN_FILES):
+        y = 0.02 * rng.standard_normal(SCAN_SECONDS * cfg.sr).astype(np.float32)
+        planted[f"site{r}"] = []
+        for j, start in enumerate(SCAN_CALLS):
+            k = (r + j) % len(BANDS)
+            for c in range(SCAN_CALL_S // 5):
+                a = (start + 5 * c) * cfg.sr
+                y[a : a + t.size] = tone_chunk(t, rng, BANDS[k] * (1 + 0.05 * rng.standard_normal()))
+            planted[f"site{r}"].append((start, k))
+        for kind, scale in (("raw", 1.0), ("norm", 0.05 / np.sqrt(np.mean(y.astype(np.float64) ** 2)))):
+            (d / kind / f"site{r}").mkdir(parents=True)
+            write_wav(d / kind / f"site{r}" / "rec.wav", y * np.float32(scale), cfg.sr)
+    return planted
+
+
+def phase_eval_path(seed: int, root: Path) -> dict:
+    """The evaluation path at full width (``DEFAULT_MEL``, default
+    ``VAEConfig``, balanced tier, pre-padded host rows) on the fit phase's
+    project (its encoder artifact and the config.json with the radial and MAP
+    blocks it wrote), through the ``main`` of each CLI, from the project root,
+    with the launch counts set to 0 just before each step and read just after:
+    ``benchmark-folder`` and ``benchmark-folder-map`` on a val tree of 4
+    species x 48 WAVs and one truncated WAV, the SNR sweep, ``run-qout-grid``
+    (per-point refits and benchmarks, the 3 x 4 device sweep with a noise
+    margin, the Spearman analysis), ``calibrate-tau --set-best`` (QDA diag,
+    shrink 0.1: a full covariance of 128 dims from 48 files a species rejects
+    every val file) and the fleet scan (``scan-soundscape --root``, 4
+    recordings x 10 min with planted calls, hop 2.5 s: once with the RMS fused
+    into the mel kernel, once with ``--no-normalize`` on the same audio
+    pre-normalized). Each result is held to the
+    same computation on the CPU from the card's latents. -> {"launches":
+    {kernel: launches on the path}, "times": {...}}."""
+    import argparse as ap
+    import csv
+
+    from anuraxla_torch.cli import (
+        benchmark_folder, benchmark_folder_map, calibrate_tau, run_qout_grid, scan_soundscape,
+    )
+    from anuraxla_torch.cli.common import session_kwargs
+    from anuraxla_torch.cli.spearman_analysis import parse_summary
+    from anuraxla_torch.config import load_config, priority_ranks, read_map, read_radial
+    from anuraxla_torch.constants import CACHE_DIR_NAME
+    from anuraxla_torch.constants import DEFAULT_MEL as cfg
+    from anuraxla_torch.constants import PRIORITY_ORDER
+    from anuraxla_torch.detect.calibrate import map_tau_sweep, radial_qgrid
+    from anuraxla_torch.detect.gaussian_map import fit_map, map_decide
+    from anuraxla_torch.detect.radial import RadialFit, fit_radial, radial_decide
+    from anuraxla_torch.ops.mel_kernel import mel_power, reset_launches
+    from anuraxla_torch.pipeline.benchmark import run_folder_benchmark
+    from anuraxla_torch.pipeline.fit import encode_augmented_tree
+    from anuraxla_torch.pipeline.session import (
+        EncoderSession, concat_species_latents, encode_species_tree, pad_species_latents,
+    )
+    from anuraxla_torch.pipeline.stream import fleet_window_batches, scan_soundscapes
+    from anuraxla_torch.probes.common import card_line
+    from anuraxla_torch.utils.wavio import WavStream
+
+    smi = card_line()
+    rng = np.random.default_rng([seed, 7])
+    enc_dir, cfg_path, chunks, val = root / "encoder", root / "config.json", root / "chunks", root / "val"
+    t0 = time.perf_counter()
+    write_species_files(val, cfg, rng, EVAL_FILES)
+    first = sorted((val / PRIORITY_ORDER[0]).glob("*.wav"))[0]
+    (val / PRIORITY_ORDER[0] / "zz_truncated.wav").write_bytes(first.read_bytes()[:30])
+    planted = write_recordings(root / "recs", cfg, rng)
+    log(f"[eval-path] val tree of {len(PRIORITY_ORDER)} species x {EVAL_FILES} WAVs + 1 truncated, and "
+        f"{SCAN_FILES} recordings x {SCAN_SECONDS // 60} min (x 2: raw and pre-normalized): "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    tier = ["--config", str(cfg_path), "--encoder", str(enc_dir), "--serving-tier", "balanced", "--pre-padded-host",
+            "--io-threads", "8"]
+    balanced = session_kwargs(ap.Namespace(serving_tier="balanced", batch_size=64, io_threads=8, pre_padded_host=True))
+    launches = dict.fromkeys(KERNELS, 0)
+    times = {}
+
+    def step(name: str, main, argv: list) -> str:
+        """One CLI run, launch counts set to 0 just before and read just
+        after; -> its standard output (also logged)."""
+        buf = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(mel_power.launches)
+        for line in buf.getvalue().splitlines():
+            if line.startswith(("✅", "⏱️", "🎯", "💾 on-device", "⚠️", "GLOBAL", "- ")) or "windows" in line:
+                log(f"[eval-path]   {line.replace(str(root), '<project>')}")
+        log(f"[eval-path] {name}: {dt:.2f} s; launches {counts}")
+        if counts["mel_power_ct"] <= 0:
+            raise AssertionError(f"eval path, {name}: mel_power_ct was not launched")
+        if any(counts[k] for k in FUSED):
+            raise AssertionError(f"eval path, {name}: a serving path launched the study's split kernel: {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        times[f"{name} s"] = dt
+        return buf.getvalue()
+
+    def read_csv(path):
+        with open(path, newline="", encoding="utf-8") as f:
+            return list(csv.DictReader(f))
+
+    def on(dev, *arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    with contextlib.chdir(root):  # the project root: outputs/ and the latent cache land in it
+        sess = EncoderSession(mel=cfg, encoder_dir=enc_dir, project_root=root, **balanced).load()
+        cfg0 = load_config(cfg_path)
+
+        # folder benchmarks; every decision recomputed on the CPU from the card's latents
+        for name, main, detector in (("benchmark-folder", benchmark_folder.main, "radial"),
+                                     ("benchmark-folder-map", benchmark_folder_map.main, "map")):
+            out_dir = root / f"bench_{detector}"
+            step(name, main, ["--root", str(val), "--out-dir", str(out_dir), "--batch-size", "64", *tier])
+            rows = read_csv(out_dir / "results.csv")
+            errors = [r for r in rows if r["pred_species"] == "ERROR"]
+            if len(errors) != 1 or not errors[0]["file"].endswith("zz_truncated.wav") or not errors[0]["error"]:
+                raise AssertionError(f"{name}: the truncated WAV is not the one ERROR row: {errors}")
+            acc, nd, acc_sp, _ = parse_summary(out_dir / "summary.txt")
+            Z, ok, _ = sess.encode_paths([Path(r["file"]) for r in rows])
+            if list(ok) != [r["pred_species"] != "ERROR" for r in rows]:
+                raise AssertionError(f"{name}: decode failures differ from the ERROR rows")
+            if detector == "radial":
+                species, cents, thr, _ = read_radial(cfg0)
+                det, win, _ = radial_decide(*on("cpu", Z[ok], cents, thr, priority_ranks(species)))
+            else:
+                species, means, precs, lds, priors, tau, _ = read_map(cfg0)
+                det, win, _ = map_decide(*on("cpu", Z[ok], means, precs, lds, priors),
+                                         torch.tensor(float("nan") if tau is None else tau))
+            cpu_pred = [species[int(w)] if d else "NO_DETECT" for d, w in zip(det.tolist(), win.tolist())]
+            card_pred = [r["pred_species"] for r in rows if r["pred_species"] != "ERROR"]
+            log(f"[eval-path] {name}: accuracy {acc * 100:.2f} %, NO_DETECT {nd * 100:.2f} % over "
+                f"{len(card_pred)} WAVs ({len(acc_sp)} species); CPU decisions from the card's latents "
+                f"identical: {cpu_pred == card_pred}")
+            if cpu_pred != card_pred:
+                raise AssertionError(f"{name}: the card's decisions differ from the CPU's on the card's latents")
+            if detector == "radial":
+                plain_acc = sum(r["pred_species"] == r["true_species"] for r in rows if r["pred_species"] != "ERROR")
+                plain_acc /= len(card_pred)
+        res = run_folder_benchmark(root=val, config_path=cfg_path, detector="radial", session=sess,
+                                   out_dir=root / "bench_warm", log=lambda *a: None, write_artifacts=False)
+        times["run_folder_benchmark encode chunks/s (warm session, batch 64)"] = res.encode_rate
+        log(f"[times] run_folder_benchmark, balanced tier, batch 64, {res.total + 1} WAVs (5 s, 48 kHz, files in "
+            f"the page cache), warm session: encode {res.encode_rate:.1f} chunks/s; {smi}")
+
+        # the SNR sweep: the clean point is the plain benchmark
+        step("benchmark-folder --snr-sweep", benchmark_folder.main,
+             ["--root", str(val), "--out-dir", str(root / "snr"), "--snr-sweep", "clean,20,8", "--batch-size", "64",
+              *tier])
+        curve = read_csv(root / "snr" / "snr_curve.csv")
+        log(f"[eval-path] snr_curve.csv: {curve}")
+        if len(curve) != 3 or curve[0]["snr_db"] != "" or float(curve[0]["accuracy"]) != plain_acc:
+            raise AssertionError(f"SNR sweep: {curve}; the clean point must equal the benchmark's {plain_acc}")
+
+        # the q_out grid, in process, with the device sweep and the Spearman analysis
+        q_out_grid, q_in_grid = ["0.10", "0.15", "0.20", "0.25"], ["0.90", "0.95", "0.99"]
+        grid = root / "grid"
+        out = step("run-qout-grid", run_qout_grid.main,
+                   ["--train-root", str(chunks), "--val-root", str(val), "--grid-root", str(grid), "--q-out-grid",
+                    *q_out_grid, "--device-sweep", "--q-in-grid", *q_in_grid, "--noise-margin-db", "14",
+                    "--analyze", "--batch-size", "64", *tier])
+        point_s = [float(x) for x in re.findall(r"⏱️ grid point q_out=\S+: ([0-9.]+)s", out)]
+        for q in q_out_grid:
+            d = grid / f"qout_{q}"
+            missing = [n for n in ("summary.txt", "results.csv", "config_used.json", "config_snapshot.json")
+                       if not (d / n).is_file()]
+            snap = json.loads((d / "config_snapshot.json").read_text()) if not missing else {}
+            if missing or sorted(snap.get("rk_per_species", {})) != sorted(PRIORITY_ORDER):
+                raise AssertionError(f"run-qout-grid: {d.name} lacks {missing} or rk of every species: {snap}")
+        if not (grid / "spearman_table.csv").is_file() or len(point_s) != len(q_out_grid):
+            raise AssertionError("run-qout-grid: no spearman_table.csv, or not one timed grid point each")
+        gm_rows = read_csv(grid / "grid_metrics.csv")
+        # the same sweep on the CPU from the card's latents (the grid's cache) and the card's fit
+        Z_by, _, _ = encode_augmented_tree(sess, chunks, list(PRIORITY_ORDER), augment_noise_db=[], cache=True,
+                                           cache_dir=root / CACHE_DIR_NAME, max_per_class=400, seed=123,
+                                           log=lambda *a: None)
+        species, Z, mask = pad_species_latents(Z_by)
+        card_fit = fit_radial(*on("cuda", Z, mask), 0.95, 0.10)
+        Zv_by, _, _ = encode_species_tree(sess, val, species, log=lambda *a: None)
+        Zv, ti = concat_species_latents(Zv_by, species)
+        ranks = priority_ranks(species)
+        qi, qo = np.float32(q_in_grid), np.float32(q_out_grid)
+        args_card = on("cuda", Zv, ti, ranks)
+        radial_qgrid(card_fit, *args_card, qi, qo)  # warm-up
+        sweep_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gm_card = radial_qgrid(card_fit, *args_card, qi, qo)
+            torch.cuda.synchronize()
+            sweep_ms.append((time.perf_counter() - t0) * 1e3)
+        cpu_fit = RadialFit(**{f.name: getattr(card_fit, f.name).cpu() for f in dataclasses.fields(RadialFit)})
+        gm_cpu = radial_qgrid(cpu_fit, *on("cpu", Zv, ti, ranks), qi, qo)
+        thr_err = float((gm_card.thresholds.cpu() / gm_cpu.thresholds - 1).abs().max())
+        csv_acc = np.array([[float(r["val_accuracy"]), float(r["val_no_detect_rate"])] for r in gm_rows])
+        cpu_acc = np.stack([gm_cpu.accuracy.numpy().ravel(), gm_cpu.no_detect_rate.numpy().ravel()], axis=1)
+        same = np.array_equal(csv_acc, cpu_acc) and torch.equal(gm_card.acc_per_class.cpu(), gm_cpu.acc_per_class)
+        summary_acc = {q: parse_summary(grid / f"qout_{q}" / "summary.txt")[0] for q in q_out_grid}
+        at95 = {q: float(gm_cpu.accuracy[q_in_grid.index("0.95"), j]) for j, q in enumerate(q_out_grid)}
+        agree95 = all(f"{at95[q] * 100:.2f}" == f"{summary_acc[q] * 100:.2f}" for q in q_out_grid)
+        log(f"[eval-path] device sweep {len(q_in_grid)} x {len(q_out_grid)}: grid_metrics.csv vs the CPU sweep from "
+            f"the card's latents and fit: rates identical {same}, thresholds card vs CPU {thr_err:.3e} "
+            f"(gate {EVAL_RTOL}); accuracy at q_in 0.95 {at95} vs the per-point summaries {summary_acc}: "
+            f"equal at two decimals {agree95}")
+        if not same or not thr_err <= EVAL_RTOL or not agree95:
+            raise AssertionError("run-qout-grid: the device sweep disagrees with the CPU or the per-point benchmark")
+        times["device sweep 3x4 ms"] = min(sweep_ms)
+        times["grid point s"] = point_s
+        log(f"[times] device sweep, {len(q_in_grid)} x {len(q_out_grid)} grid over {len(ti)} val latents: "
+            f"{min(sweep_ms):.3f} ms (the fastest of 5, host clock, synchronized); wall s per grid point (refit "
+            f"from the cache + benchmark of {len(ti) + 1} WAVs): {point_s}; {smi}")
+
+        # calibrate-tau, held to map_tau_sweep on the CPU from the card's latents
+        tau_csv = root / "tau_grid.csv"
+        step("calibrate-tau", calibrate_tau.main,
+             ["--train-root", str(chunks), "--val-root", str(val), "--out", str(tau_csv), "--set-best",
+              "--cov-type", "qda", "--cov-structure", "diag", "--shrink", "0.1", "--batch-size", "64", *tier])
+        tau_rows = read_csv(tau_csv)
+        Zt_by, _, _ = encode_species_tree(sess, chunks, list(PRIORITY_ORDER), log=lambda *a: None)
+        species_t, Zt, mt = pad_species_latents({sp: Zt_by[sp] for sp in sorted(Zt_by)})
+        Zv_by, _, _ = encode_species_tree(sess, val, species_t, log=lambda *a: None)
+        Zv, ti = concat_species_latents(Zv_by, species_t)
+        mfit = fit_map(*on("cpu", Zt, mt), cov_type="qda", cov_structure="diag", shrink=0.1, eps=1e-6)
+        qs = [float(r["tau_q"]) for r in tau_rows]
+        taus, acc, nod = map_tau_sweep(mfit.scores_true_sorted, mfit.n_scores, *on("cpu", Zv, ti), mfit.means,
+                                       mfit.precisions, mfit.logdets, mfit.priors, qs)
+        tau_err = float(np.abs(np.array([float(r["tau"]) for r in tau_rows]) / taus.numpy() - 1).max())
+        same = ([float(r["val_accuracy"]) for r in tau_rows] == acc.tolist()
+                and [float(r["val_no_detect_rate"]) for r in tau_rows] == nod.tolist())
+        new_tau = load_config(cfg_path)["map_detector"]["tau"]
+        log(f"[eval-path] tau_grid.csv vs map_tau_sweep on the CPU from the card's latents: taus {tau_err:.3e} "
+            f"(gate {TAU_RTOL}), rates identical {same}; accuracies {acc.tolist()}; tau set to {new_tau}")
+        if not tau_err <= TAU_RTOL or not same or not max(acc.tolist()) > 0.5 or not (root / "config.json.bak").is_file():
+            raise AssertionError("calibrate-tau disagrees with the CPU sweep, or wrote no backup")
+
+        # the fleet scan: 4 recordings x 10 min at hop 2.5 s = 960 windows, one batch of 1024, served
+        # by the fit phase's radial block (q_out 0.01), not the grid's last point (q_out 0.25)
+        cfg_path.write_text(json.dumps(cfg0))
+        recs = root / "recs" / "raw"
+        scan_args = ["--hop-seconds", str(SCAN_HOP_S), "--batch-size", str(TIMING_B), *tier]
+        for name, d, extra in (("scan-soundscape", recs, ["--extract-dir", str(root / "extract")]),
+                               ("scan-soundscape --no-normalize", root / "recs" / "norm", ["--no-normalize"])):
+            out_dir = root / ("det" if d == recs else "det_norm")
+            step(name, scan_soundscape.main, ["--root", str(d), "--out", str(out_dir), *extra, *scan_args])
+            rows_by_site = {site: read_csv(out_dir / f"{site}__rec.detections.csv") for site in planted}
+            n_rows = sum(len(v) for v in rows_by_site.values())
+            hits = inside = false = outside = 0
+            for site, calls in planted.items():
+                for r in rows_by_site[site]:
+                    t0, t1 = float(r["t_start"]), float(r["t_end"])
+                    k = next((k for start, k in calls if start <= t0 and t1 <= start + SCAN_CALL_S), None)
+                    if k is not None:
+                        inside += 1
+                        hits += r["species"] == PRIORITY_ORDER[k]
+                    elif any(t0 < start + SCAN_CALL_S and start < t1 for start, _ in calls):
+                        continue  # holds part of a call
+                    else:
+                        outside += 1
+                        false += r["detected"] == "True"
+            log(f"[eval-path] {name}: {n_rows} windows; of the {inside} windows inside a planted call {hits} "
+                f"detected as its species (gate {SCAN_HIT_SHARE:.0%}); of the {outside} windows of noise alone "
+                f"{false} detected (gate {SCAN_FALSE_SHARE:.0%})")
+            if n_rows != SCAN_FILES * int(SCAN_SECONDS / SCAN_HOP_S):
+                raise AssertionError(f"{name}: {n_rows} windows")
+            if hits < SCAN_HIT_SHARE * inside or false > SCAN_FALSE_SHARE * outside:
+                raise AssertionError(f"{name}: planted calls missed or noise detected")
+        extracted = sorted((root / "extract").rglob("*.wav"))
+        scanned = sum(r["detected"] == "True" for site in planted
+                      for r in read_csv(root / "det" / f"{site}__rec.detections.csv"))
+        if len(extracted) != scanned or {p.name.split("_t")[0] for p in extracted} != {f"{s}__rec" for s in planted}:
+            raise AssertionError(f"--extract-dir wrote {len(extracted)} chunks for {scanned} detections")
+
+        # the first batch again through encode_array on the card: the same decisions
+        wavs = sorted(recs.rglob("*.wav"))
+        scan_kw = dict(mel=cfg, encoder_dir=enc_dir, project_root=root, normalize_on_device=True,
+                       **dict(balanced, batch_size=TIMING_B))
+        ssess = EncoderSession(**scan_kw).load()
+        hop = int(cfg.sr * SCAN_HOP_S)
+        batch, tags, n_valid = next(iter(fleet_window_batches(
+            [WavStream(p) for p in wavs], num_samples=cfg.num_samples, hop_samples=hop, batch_size=TIMING_B,
+            target_sr=cfg.sr, layout=ssess._layout)))
+        cfg1 = load_config(cfg_path)
+        species, cents, thr, _ = read_radial(cfg1)
+        det, win, best = (x.cpu() for x in radial_decide(torch.from_numpy(ssess.encode_array(batch)).cuda(),
+                                                          *on("cuda", cents, thr, priority_ranks(species))))
+        again = [species[int(w)] if d else "NO_DETECT" for d, w in zip(det.tolist(), win.tolist())][:n_valid]
+        scanned = [r["species"] for p in wavs for r in read_csv(root / "det" / f"{p.parent.name}__rec.detections.csv")]
+        log(f"[eval-path] first batch ({n_valid} windows) through encode_array on the card: decisions identical "
+            f"to the scan's {again == scanned[:n_valid]}")
+        if again != scanned[:n_valid]:
+            raise AssertionError("the scan's detections differ from encode_array's on the same windows")
+        # the parity tier's latents for 32 windows around the first planted call, card vs CPU
+        i0 = max(0, int(np.searchsorted(tags[:n_valid, 1], SCAN_CALLS[0] * cfg.sr)) - 8)
+        rows = np.ascontiguousarray(batch[i0 : i0 + SCAN_PARITY_ROWS])
+        parity = session_kwargs(ap.Namespace(serving_tier="parity", batch_size=SCAN_PARITY_ROWS, io_threads=8,
+                                             pre_padded_host=True))
+        pkw = dict(mel=cfg, encoder_dir=enc_dir, project_root=root, normalize_on_device=True, **parity)
+        Zp = EncoderSession(**pkw).load().encode_array(rows)
+        Zc = EncoderSession(**pkw, device="cpu").load().encode_array(rows)
+        np.testing.assert_allclose(Zp, Zc, rtol=5e-4, atol=2e-5)
+        log(f"[eval-path] parity tier, {SCAN_PARITY_ROWS} scan windows (fused RMS, pre-padded) card vs CPU: "
+            f"max|diff| {np.abs(Zp - Zc).max():.3e} (rtol 5e-4, atol 2e-5)")
+
+        # the scan timed on a warm session, and its parts
+        for _ in range(2):  # the first run warms the page cache and the allocator
+            torch.cuda.synchronize()
+            _, stats = scan_soundscapes(wavs, ssess, detector="radial", config=cfg1, hop_seconds=SCAN_HOP_S,
+                                        log=lambda *a: None)
+        t0 = time.perf_counter()
+        batch1 = next(iter(fleet_window_batches(
+            [WavStream(p) for p in wavs], num_samples=cfg.num_samples, hop_samples=hop, batch_size=TIMING_B,
+            target_sr=cfg.sr, layout=ssess._layout, prefetch=False)))[0]
+        extract_ms = (time.perf_counter() - t0) * 1e3
+        decide = lambda Z: radial_decide(Z, *on("cuda", cents, thr, priority_ranks(species)))  # noqa: E731
+        dev_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                decide(ssess._dispatch(batch1))[0].cpu()
+            dev_ms.append((time.perf_counter() - t0) * 1e3)
+        times["scan windows/s"] = stats["n_windows"] / stats["wall_seconds"]
+        times["scan realtime x"] = stats["realtime_x"]
+        times["scan extract ms/batch"] = extract_ms
+        times["scan device ms/batch"] = min(dev_ms)
+        log(f"[times] fleet scan, balanced tier, B={TIMING_B}, fused RMS, pre-padded rows: {stats['n_windows']} "
+            f"windows of {stats['n_files']} recordings ({stats['total_audio_seconds'] / 3600:.3f} h) in "
+            f"{stats['wall_seconds']:.3f} s = {times['scan windows/s']:.1f} windows/s, "
+            f"{stats['realtime_x']:.1f}x realtime; one batch: extract {extract_ms:.2f} ms (one thread, WavStream "
+            f"reads into a new array), copy + transfer + forward + decide + fetch {min(dev_ms):.2f} ms; {smi}")
+        del ssess, sess
+        torch.cuda.empty_cache()
+    return {"launches": launches, "times": times}
 
 
 def phase_study_times(rng) -> dict:
@@ -1162,7 +1555,9 @@ def main() -> None:
         checkpoint(f"tables uploaded again behind {mb} MB held", shift_mb=mb)
     if args.dense_checkpoints is not None:
         dense_strides()
-    fit = phase_fit_path(args.seed, np.random.default_rng([args.seed, 6]))
+    with tempfile.TemporaryDirectory() as tmp:  # the project both phases share
+        fit = phase_fit_path(args.seed, np.random.default_rng([args.seed, 6]), Path(tmp))
+        evaluation = phase_eval_path(args.seed, Path(tmp))
     study_rng = np.random.default_rng([args.seed, 3])
     errors.update(phase_kernel_vs_plain(STUDY_CASES, study_rng))
     launches.update(phase_study_path())
@@ -1176,6 +1571,7 @@ def main() -> None:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "tile": t["tile"],
             **({"launches_fit_path": fit["launches"]} if name == "mel_power_ct" else {}),
+            "launches_eval_path": evaluation["launches"][name],
         })
     from anuraxla_torch.probes.common import card_line
 
@@ -1183,7 +1579,9 @@ def main() -> None:
     cps = times["chunks_per_s"]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; chunks/s at B=1024: "
         f"balanced {cps['balanced']:.1f}, fast {cps['fast']:.1f}; encode_paths (balanced): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in fit["chunks_per_s"].items()))
+        + ", ".join(f"{k} {v:.1f}" for k, v in fit["chunks_per_s"].items())
+        + f"; fleet scan {evaluation['times']['scan windows/s']:.1f} windows/s "
+        f"({evaluation['times']['scan realtime x']:.1f}x realtime)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
