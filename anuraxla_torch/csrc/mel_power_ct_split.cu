@@ -1,5 +1,6 @@
 // Fused mel power with the outer stage as ONE deep product per r over bf16
-// split operands, on Hopper's tensor cores: PCM rows -> [B, T, n_mels] f32.
+// split operands, on Hopper's warpgroup tensor-core products (wgmma): PCM
+// rows -> [B, T, n_mels] f32.
 //
 // Replaces the `fused_dots=True` variant of the TPU kernels in
 // anuraxla/ops/pallas_frontend.py: `_ct_outer_stage_fused` (:513-564) with
@@ -22,49 +23,85 @@
 //           p rounded once, mel += bf16(p) @ F_hi.
 // Every product is of two bf16 values and exact in f32; sums are f32.
 //
-// Design. One block of 512 threads owns one row and a tile of TF = 32 frames.
-// The inner stage writes the hi and lo planes of a group
-// of r to shared memory once, as bf16. The concatenation the TPU kernel
-// materialises along lanes is never formed: the K loop reads segment s from
-// plane (hi, hi, lo)[s], and the hi fragments serve both of their segments.
-// Products run on the tensor cores with mma.sync.m16n8k16 (bf16 operands, f32
-// accumulators in registers). Warp w owns the x_re columns 8w..8w+7 and the
-// x_im columns 128+8w.. of all 32 frames (16 accumulator registers a
-// thread), so a thread holds both parts of its bins and forms the power in
-// registers. A fragments come from shared memory with 32-bit loads; plane
-// rows are 136 bf16 (272 B) apart, which spreads a fragment's 32 words over
-// the 32 banks. B fragments come from global memory: the host lays the RHS
-// and filterbank tables out in fragment order (ops/mel_kernel.py,
-// `ct_fragment_tables`), so one 16-byte load a lane feeds four `mma`s and a
-// warp's load is contiguous; the tables (3.5 MB + 0.4 MB at n_fft 2048, 64
-// mels) stay in L2. The split power goes to shared memory as bf16 and the
-// filterbank product is a second, small `mma` stage: warp w owns 16 frames x
-// 8 mels, summed from zero for each r and added to the running mel in f32.
+// Design. One block owns one row and 32 frames:
+//   - Each distinct table part once. The host (ops/mel_kernel.py,
+//     `ct_fused_tables`) stores T_hi and T_lo (and F_hi, F_lo) of each r,
+//     bitwise from `ct_tables_folded_cat`; the hi tile serves both segments
+//     that read it (a_hi*T_hi and a_lo*T_hi). The cat table's third row
+//     block, a copy of the first, is never read: a third fewer bytes.
+//   - The table as one stream of stages, in the order the block consumes
+//     them (for R = 16 the inner stage's groups: r = 0 4 8 1 5 2 6 3 7; else
+//     r = 0 .. R/2): 16 KB in the exact mode (one k16 step of T_hi and T_lo
+//     of [256 columns][K] in the wgmma core-matrix order), 32 KB in the bf16
+//     mode (four k16 steps of T_hi). One producer warp copies them with TMA
+//     bulk copies (cp.async.bulk, mbarrier completion) into a ring of 2-4
+//     slots (4 x 16 KB exact, 3 x 32 KB bf16 at n_fft 2048 / hop 384); a
+//     slot is refilled when the block's 16 consumer warps have released it.
+//   - Products on wgmma from shared memory: 16 consumer warps are four
+//     warpgroups. Outer stage: A = the table (M = 256 columns, x_re and x_im
+//     of a bin 8 rows apart, so a thread's accumulators hold both parts of
+//     its bins and the power forms in registers), B = the inner stage's bf16
+//     planes (N = 32 frames, K = n2), warpgroup w the rows of bins 32w..;
+//     m64n32k16, three passes a k16 step in the exact mode. Filterbank: A =
+//     the filterbank (mels zero-padded to 64 or 128), B = the split power;
+//     the k16 steps of a stage are dealt to the warpgroups, each keeps a
+//     running mel, and the four meet in shared memory in a fixed order.
+//   - Each stage's products are summed from zero (at most four deep; the
+//     tensor cores' accumulator truncates, PERF.md §6) and added in
+//     round-to-nearest f32; the slot is released as soon as they complete.
 //
-// Bound on an H100 SXM. The function's least work is that of
-// mel_power_ct.cu (41.2 GFLOP for 1024 rows x 626 frames at n_fft 2048 / hop
-// 384 / 64 mels), but every product here has bf16 operands, so its rate is
-// the tensor cores' 989 TFLOP/s: even counted once for each of the three
-// passes of the split that is 0.125 ms, under the 0.410 ms the 1.37 GB of
-// rows, tables and output take at 3.35 TB/s. Both modes are bound by their
-// bytes (the bf16 mode over the fast tier's 192 frames: 0.108 ms), and
-// 11.4 ms is 3.6 % of that bound. This kernel's own form does 3.59 MFLOP a frame in exact mode (7 complex r of 32x768x256, 2
-// real of 32x384x256, 9 filterbank products of 32x384x64 a tile), ~2.3 TFLOP a
-// batch. With 32 frames a block every block streams the whole RHS table from
-// L2 (3.9 MB a block, ~80 GB a batch), which is what bounds this first
-// version; more frames a block, `wgmma` and TMA are later work. Measured by
-// chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W for that batch: 11.4 ms
-// exact (the FP32 FFMA kernel 40.4 ms, one torch.stft call 17.6 ms), 1.9 ms
-// in the bf16 mode over the fast tier's 192 frames.
+// What bounds it (PERF.md §6, measured on the card). Not the bytes: its
+// least time is 0.410 ms (rows, tables and output at 3.35 TB/s; 0.108 ms for
+// the bf16 mode over the fast tier's 192 frames), and it reaches 4.8 % of it.
+// Not L2 either: the stream reads 49.0 GB a batch from L2 at B = 1024 (the
+// first version of this file read 73.5 GB). A study that multicast each
+// stage across a thread-block cluster of 2 and 4 blocks along the row axis
+// halved and quartered those bytes (24.5, 12.2 GB) and made the kernel
+// slower (10.5 -> 11.0 -> 12.1 ms, perf_logs/pr8/final_proof.log); the
+// cluster code alone (remote arrivals in the stage loop, cluster barriers,
+// padding rows) cost 10.2-10.4 -> 8.4-8.5 ms at clusters of one block
+// (perf_logs/pr8/ab_nocluster2.log), so it is gone. Nor the tensor cores:
+// m64n32k16 from shared memory would take a stage's 12 products in a few
+// hundred cycles. What bounds it is the stage loop's instructions: 16 warps
+// each issue ~50 a 16 KB stage (wait, descriptors, three products, their
+// wait, 16 f32 adds, release). With a division by the ring's size in the
+// loop, descriptors built from scratch and a `.release.cluster` arrival on
+// the ring's barriers it took 17-25 ms; counters, descriptors advanced by
+// adding offsets, and a plain arrival took it to 11.4. The bulk copies land
+// ~2900 cycles after their issue; the ring hides that because each slot is
+// released as soon as its products complete. The inner stage's stores hit
+// 4-way bank conflicts on core-matrix planes: padding the planes' strides
+// (144 B along K, 288 B between 8-frame groups, 1184 B between k16 steps;
+// the B descriptor takes any multiple of 16 B) took 11.4 to 10.2-10.5 ms.
+// The bf16 mode's 16 KB stages carried two products a warpgroup; 32 KB
+// stages took it from ~2.05 to 1.74-1.79 ms.
 //
-// The tensor cores' f32 accumulator is not an IEEE round-to-nearest chain;
-// chip_smoke.py holds the kernel to its plain version with f64 sums and
-// prints worst and mean beside the plain version's own.
+// Shared memory at n_fft 2048 / hop 384: exact, the ring (4 x 16 KB), eight
+// mbarriers, the f32 window (55.8 KB), four hi and four lo planes and the
+// split power (10 x 9472 B), 216 128 B; bf16, 3 x 32 KB and five planes,
+// 201 536 B. One block of 544 threads an SM. The host's copy of this size
+// and of the tile (32 frames, the deepest ring that fits) is
+// ops/mel_kernel.py `ct_fused_smem_bytes`, `ct_fused_tile`.
 //
 // ptxas (nvcc 12.9, sm_90a), as ops/_build.py keeps it beside the library:
-// exact mode 106 registers, bf16 mode 96, 1 barrier each, 0 bytes stack frame,
-// 0 bytes spill stores, 0 bytes spill loads; one block of 512 threads an SM
-// (142.8 KB of shared memory at n_fft 2048 / hop 384).
+// 80 registers in both modes, 2 barriers, 0 bytes stack frame, 0 bytes spill
+// stores, 0 bytes spill loads.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W, B = 1024, CUDA events
+// (perf_logs/pr8/scripts/ab_nocluster.py, ab_nocluster2.log; beside it the
+// source with the cluster path, launched in clusters of one block, in the
+// same call): exact over 626 frames 8.529 / 8.481 ms (with the cluster path
+// 10.396 / 10.239; the first version 11.475 / 11.399 by chip_smoke.py,
+// final_proof.log; one torch.stft call 17.615), 270 TFLOP/s of its own form
+// (2.300 TFLOP); the bf16 mode over the fast tier's 192 frames 1.519 / 1.519
+// ms (1.728 / 1.724; the first version 1.842 / 1.841). chip_smoke.py's times
+// of the final tree: PERF.md §6.
+//
+// A wait on an mbarrier that has not completed after 60 s traps instead of
+// hanging the card: a fault in the stream's bookkeeping shows as an error,
+// not as a hang. A trap is fatal to the process's CUDA context (every later
+// call on the card fails), so the limit is far above any wait of a sound
+// run, a kernel preempted or time-sliced with another context included.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,302 +114,468 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TF = 32;          // frames per block: two m16 tiles
-constexpr int NTHREADS = 512;   // 16 warps
-constexpr int NB = CT_NB;       // CT block length (n2 and q range)
-constexpr int LDA = NB + 8;     // bf16 per plane row (272 B: conflict-free fragments)
-constexpr int PLANE = TF * LDA; // bf16 per plane, layout [t][n2]
-constexpr int SEG_STEPS = NB / 16;  // k16 steps per 128-wide segment
-constexpr int MAX_FB_TILES = 2; // 16-frame x 8-mel tiles a warp: n_mels <= 128
+constexpr int TF = 32;                 // frames per block: N of every product
+constexpr int NCONS = 512;             // consumer threads: 4 warpgroups
+constexpr int NTHREADS = NCONS + 32;   // and one producer warp
+constexpr int NB = CT_NB;              // CT block length (n2 and q range)
+// The planes (the B operand: [TF frames][NB] bf16, K-major core matrices).
+// Their strides are padded so that the 16-byte rows a warp's 32 lanes (32
+// consecutive n2 of one frame) write in the inner stage fall on distinct
+// banks: 8-column halves 144 B apart (the leading byte offset), 8-frame
+// groups 288 B (the stride byte offset), k16 steps 1184 B.
+constexpr int PL_LBO = 144, PL_SBO = 288, PL_STEP = 1184;
+constexpr int PLANE = NB / 16 * PL_STEP / 2;  // bf16 per plane (9472 B)
+// One stage of the table stream: 16 KB in the exact mode (a k16 step of T_hi
+// and T_lo), 32 KB in the bf16 mode (four k16 steps of T_hi: a stage of two
+// products carried too little work for its bookkeeping).
+template <bool EXACT>
+__host__ __device__ constexpr int stage_bytes() { return EXACT ? 16384 : 32768; }
+constexpr int MAX_STAGES = 4;          // ring slots at most
 
 struct Params {
-  const float* y;      // [B, L] rows
-  const float* scale;  // [B] or nullptr
-  const float* win;    // [n_fft] periodic Hann
-  const float* wr;     // [R, 2] (cos, sin) of 2*pi*j/R
-  const uint4* rhs;    // [k16 steps of every r, 16 warps, 32 lanes] B fragments
-  const uint2* fb;     // [(R/2+1) * k1 steps, mel tiles, 32 lanes] B fragments
-  float* out;          // [B, T, n_mels]
+  const float* y;        // [B, L] rows
+  const float* scale;    // [B] or nullptr
+  const float* win;      // [n_fft] periodic Hann
+  const float* wr;       // [R, 2] (cos, sin) of 2*pi*j/R
+  const uint8_t* tab;    // [n_stages, stage_bytes] the table stream (ct_fused_tables)
+  float* out;            // [B, T, n_mels]
   long long L;
-  int T, n_fft, hop, n_mels, R;
-  int frame0;  // first frame computed; out[:, t] is frame frame0 + t
-  int pad_l;   // zeros before the row in the centre-padded signal
+  int B, T, n_fft, hop, n_mels, R;
+  int frame0;    // first frame computed; out[:, t] is frame frame0 + t
+  int pad_l;     // zeros before the row in the centre-padded signal
+  int stages;    // ring slots
+  int n_stages;  // stages of the stream
+  int m_tiles;   // 64-row mel tiles of the filterbank product (1 or 2)
 };
 
-// D += A (16x16, row) * B (16x8, col), bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// ---- barriers, copies and products (PTX) ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
 }
 
-// The A fragment of the 16x16 tile at `tile` (row stride LDA): lane 4g + c
-// holds rows g and g + 8, columns 2c, 2c+1 and 2c+8, 2c+9.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int g, int c) {
-  const uint32_t* r0 = reinterpret_cast<const uint32_t*>(tile + g * LDA + 2 * c);
-  const uint32_t* r1 = reinterpret_cast<const uint32_t*>(tile + (g + 8) * LDA + 2 * c);
-  a[0] = r0[0];
-  a[1] = r1[0];
-  a[2] = r0[4];
-  a[3] = r1[4];
+__device__ __forceinline__ uint64_t globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
 
-// Outer stage for one r: x_re | x_im = L @ RHS_r on the tensor cores, then
-// the power, split, to `p_hi` / `p_lo` [t][q]. `kstep0` is the first k16 step
-// of RHS_r in the fragment table; `hi` / `lo` point at the a_re planes, the
-// a_im planes follow one plane later.
-template <bool EXACT, bool HAS_IM>
-__device__ __forceinline__ void outer_power(const Params& p, int kstep0,
-                                            const bf16* __restrict__ hi,
-                                            const bf16* __restrict__ lo,
-                                            bf16* __restrict__ p_hi,
-                                            bf16* __restrict__ p_lo) {
-  constexpr int PARTS = EXACT ? 3 : 1;  // segments of a component: hi, hi, lo
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  float xr[2][4], xi[2][4];  // [frame tile][fragment register]
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) { xr[i][j] = 0.f; xi[i][j] = 0.f; }
+// Wait until the phase of `parity` has completed; trap after 60 s.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = globaltimer();
+  while (!mbar_try(bar, parity))
+    if (globaltimer() - t0 > 60000000000ull) __trap();
+}
 
-  const uint4* bp = p.rhs + ((size_t)kstep0 * 16 + warp) * 32 + lane;
-  constexpr size_t STEP = 16 * 32;  // uint4 per k16 step
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// `bytes` from global memory to `dst`, completing on the barrier `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The 512 consumer threads (the producer warp is not held).
+__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(NCONS) : "memory"); }
+
+// Plain stores to shared memory made visible to the async proxy (wgmma).
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// Operand descriptors: no swizzle, K-major, 8-row x 16-byte core matrices
+// `lbo` bytes apart along K and `sbo` bytes apart along M (or N): 128 / 256
+// for the tables as the host lays them out, PL_LBO / PL_SBO for the planes.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo = 128, uint32_t sbo = 256) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+__device__ __forceinline__ uint64_t desc_plane(uint32_t addr) { return desc(addr, PL_LBO, PL_SBO); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+// Wait until every committed group of this warpgroup has completed.
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Keep the compiler from moving accesses of `d` across a wgmma wait.
+__device__ __forceinline__ void fence_operand(float (&d)[16]) {
 #pragma unroll
-  for (int comp = 0; comp < (HAS_IM ? 2 : 1); ++comp) {
-    const bf16* ahi = hi + comp * PLANE;
-    const bf16* alo = lo + comp * PLANE;
-    const uint4* bc = bp + (size_t)comp * PARTS * SEG_STEPS * STEP;
-#pragma unroll 2
-    for (int k = 0; k < SEG_STEPS; ++k) {
-      uint4 b[PARTS];
-#pragma unroll
-      for (int s = 0; s < PARTS; ++s) b[s] = __ldg(bc + (size_t)(s * SEG_STEPS + k) * STEP);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        uint32_t a[4];
-        load_a(a, ahi + mt * 16 * LDA + 16 * k, g, c);
-        // segments 0 and 1 share the hi fragment: a_hi * T_hi + a_hi * T_lo
-#pragma unroll
-        for (int s = 0; s < (EXACT ? 2 : 1); ++s) {
-          mma_bf16(xr[mt], a, b[s].x, b[s].y);
-          mma_bf16(xi[mt], a, b[s].z, b[s].w);
-        }
-        if (EXACT) {  // segment 2: a_lo * T_hi
-          load_a(a, alo + mt * 16 * LDA + 16 * k, g, c);
-          mma_bf16(xr[mt], a, b[2].x, b[2].y);
-          mma_bf16(xi[mt], a, b[2].z, b[2].w);
-        }
-      }
-    }
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 32, f32) = A (64 x 16) * B (16 x 32) [+ D unless `zero`], bf16
+// operands from shared memory. Thread lane 4g + c of warp v of the
+// warpgroup holds rows 16v + g (d[4j], d[4j+1]) and 16v + g + 8 (d[4j+2],
+// d[4j+3]) at columns 8j + 2c, 8j + 2c + 1.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da, uint64_t db, bool zero) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.eq.u32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"((uint32_t)zero)
+      : "memory");
+}
+
+// ---- the consumers' state and stages ----
+
+// Where element (t, k) of a [TF][NB] plane lies (bf16 units): k16 step k/16,
+// then 8-frame group, then 8-column half, then the core matrix (PL_*).
+__device__ __forceinline__ int plane_off(int t, int k) {
+  return ((k >> 4) * PL_STEP + (t >> 3) * PL_SBO + ((k >> 3) & 1) * PL_LBO) / 2 + (t & 7) * 8 + (k & 7);
+}
+
+struct Ctx {
+  uint32_t ring;   // shared address of slot 0
+  int sbytes;      // bytes a stage
+  uint32_t full;   // shared address of full[0]; empty[s] = full + 8 (MAX_STAGES + s)
+  int stages;
+  int wg, warp, lane;     // warpgroup, warp in it, lane
+  int slot;               // ring slot of the stage waited for next
+  uint32_t phase;         // parity of that slot's fill
+};
+
+// Wait for the next stage of the stream; its shared address.
+__device__ __forceinline__ uint32_t next_stage(const Ctx& x) {
+  mbar_wait(x.full + 8 * x.slot, x.phase);
+  return x.ring + x.slot * x.sbytes;
+}
+
+// This warp is done with the stage it waited for last: one arrival on its
+// slot's `empty` barrier; then the next slot. (Counters, not a division by
+// the ring's size: the stage loop is bound by the instructions its 16 warps
+// issue, PERF.md.)
+__device__ __forceinline__ void release_stage(Ctx& x) {
+  if (x.lane == 0) mbar_arrive(x.full + 8 * (MAX_STAGES + x.slot));
+  if (++x.slot == x.stages) {
+    x.slot = 0;
+    x.phase ^= 1;
   }
-
-  // a thread holds x_re and x_im of its bins: rows g / g + 8 of each frame
-  // tile, columns q, q + 1
-  const int q = 8 * warp + 2 * c;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int o = (16 * mt + g + 8 * h) * LDA + q;
-      const float p0 = xr[mt][2 * h] * xr[mt][2 * h] + xi[mt][2 * h] * xi[mt][2 * h];
-      const float p1 = xr[mt][2 * h + 1] * xr[mt][2 * h + 1] + xi[mt][2 * h + 1] * xi[mt][2 * h + 1];
-      const bf16 h0 = __float2bfloat16_rn(p0), h1 = __float2bfloat16_rn(p1);
-      *reinterpret_cast<__nv_bfloat162*>(p_hi + o) = __halves2bfloat162(h0, h1);
-      if (EXACT)  // the lo half is formed in f32, before the second product
-        *reinterpret_cast<__nv_bfloat162*>(p_lo + o) =
-            __halves2bfloat162(__float2bfloat16_rn(p0 - __bfloat162float(h0)),
-                               __float2bfloat16_rn(p1 - __bfloat162float(h1)));
-    }
 }
 
-// Filterbank product for one r: mel += [p_hi p_hi p_lo] @ FBCAT_r, each
-// tile summed from zero on the tensor cores and added to the running mel.
+// Run the `n` stages of `op`: wait for a stage's data, issue its products
+// (summed from zero on the tensor cores, at most four deep), wait for them,
+// add them in round-to-nearest f32 and release the slot at once. A slot held
+// past its products (until the next stage's data has arrived, as a two-deep
+// pipeline of products holds it) delays its refill by the copy's latency,
+// some 2900 cycles for a 16 KB bulk copy on an H100 (PERF.md).
+template <class Op>
+__device__ __forceinline__ void run_stages(Ctx& x, Op& op, int n) {
+  float acc[16];
+#pragma unroll 1
+  for (int s = 0; s < n; ++s) {
+    op.issue(x, s, acc);
+    wgmma_wait();
+    fence_operand(acc);
+    op.retire(acc);
+    release_stage(x);
+  }
+}
+
+// The outer product of one r: stage s is k16 step(s) st of component
+// s / steps (a_re, then a_im), against this warpgroup's 64 rows of the
+// table. Exact: T_hi*a_hi + T_lo*a_hi + T_hi*a_lo; bf16: two k16 steps.
 template <bool EXACT>
-__device__ __forceinline__ void fb_accumulate(const Params& p, int r,
-                                              const bf16* __restrict__ p_hi,
-                                              const bf16* __restrict__ p_lo,
-                                              float (&mel)[MAX_FB_TILES][4]) {
-  constexpr int PARTS = EXACT ? 3 : 1;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int n_tiles = (p.n_mels + 7) / 8;
-  const size_t step = (size_t)n_tiles * 32;  // uint2 per k16 step
+struct OuterOp {
+  static constexpr int KS = EXACT ? 1 : 4;  // k16 steps a stage
+  static constexpr int STEPS = 8 / KS;      // stages a component
+  uint32_t a_hi;  // shared address of the a_re hi plane; a_im's is the next plane, lo 4 planes on
+  float (&sum)[16];
+  __device__ __forceinline__ void issue(Ctx& x, int s, float (&acc)[16]) {
+    const uint32_t tile = next_stage(x) + x.wg * 2048;
+    const uint32_t plane = a_hi + (s / STEPS) * PLANE * 2 + (s % STEPS) * KS * PL_STEP;
+    const uint64_t da = desc(tile), db = desc_plane(plane);  // desc(a + d) = desc(a) + d / 16
+    fence_operand(acc);
+    wgmma_fence();
+    if (EXACT) {
+      wgmma_m64n32k16(acc, da, db, true);                            // T_hi * a_hi
+      wgmma_m64n32k16(acc, da + 8192 / 16, db, false);               // T_lo * a_hi
+      wgmma_m64n32k16(acc, da, db + 4 * PLANE * 2 / 16, false);      // T_hi * a_lo
+    } else {
 #pragma unroll
-  for (int j = 0; j < MAX_FB_TILES; ++j) {
-    const int tile = warp + 16 * j;
-    const int mt = tile & 1, nt = tile >> 1;
-    if (nt >= n_tiles) continue;  // the same for a whole warp
-    const uint2* bp = p.fb + (size_t)r * PARTS * SEG_STEPS * step + (size_t)nt * 32 + lane;
-    float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 2
-    for (int k = 0; k < SEG_STEPS; ++k) {
-      uint2 b[PARTS];
-#pragma unroll
-      for (int s = 0; s < PARTS; ++s) b[s] = __ldg(bp + (size_t)(s * SEG_STEPS + k) * step);
-      uint32_t a[4];
-      load_a(a, p_hi + mt * 16 * LDA + 16 * k, g, c);
-      mma_bf16(d, a, b[0].x, b[0].y);
-      if (EXACT) {
-        mma_bf16(d, a, b[1].x, b[1].y);
-        load_a(a, p_lo + mt * 16 * LDA + 16 * k, g, c);
-        mma_bf16(d, a, b[2].x, b[2].y);
-      }
+      for (int k = 0; k < KS; ++k) wgmma_m64n32k16(acc, da + k * (8192 / 16), db + k * (PL_STEP / 16), k == 0);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) mel[j][i] += d[i];
+    wgmma_commit();
   }
-}
+  __device__ __forceinline__ void retire(const float (&acc)[16]) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+  }
+};
+
+// The filterbank product of one r: mel += [p_hi p_hi p_lo] @ FBCAT_r. The
+// k16 steps of each stage are dealt to the warpgroups (warpgroup w: mel tile
+// w % m_tiles, every (4 / m_tiles)-th step): one step a stage in the exact
+// mode (its three passes), two in the bf16 mode (a stage holds a whole r's,
+// zero-padded to the stage). Each warpgroup keeps its own running mel.
+template <bool EXACT>
+struct FbOp {
+  uint32_t p_hi;  // shared address of the power's hi plane; lo follows
+  int rows, ks_stage, kgroups, mt, kg;
+  float (&mel)[16];
+  __device__ __forceinline__ void issue(Ctx& x, int s, float (&acc)[16]) {
+    const uint32_t base = next_stage(x) + mt * 2048;
+    const uint32_t step = rows * 32;  // bytes of one k16 step of one part
+    fence_operand(acc);
+    wgmma_fence();
+    if (EXACT) {
+      const uint64_t da = desc(base + kg * step), db = desc_plane(p_hi + (s * ks_stage + kg) * PL_STEP);
+      wgmma_m64n32k16(acc, da, db, true);                                  // F_hi * p_hi
+      wgmma_m64n32k16(acc, da + ks_stage * step / 16, db, false);          // F_lo * p_hi
+      wgmma_m64n32k16(acc, da, db + PLANE * 2 / 16, false);                // F_hi * p_lo
+    } else {
+#pragma unroll 1
+      for (int ks = kg; ks < ks_stage; ks += kgroups)
+        wgmma_m64n32k16(acc, desc(base + ks * step), desc_plane(p_hi + (s * ks_stage + ks) * PL_STEP), ks == kg);
+    }
+    wgmma_commit();
+  }
+  __device__ __forceinline__ void retire(const float (&acc)[16]) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) mel[i] = __fadd_rn(mel[i], acc[i]);
+  }
+};
 
 // Where the inner stage leaves plane k of its group at frame t: split into
-// bf16 hi and (exact mode) lo, [k][t][n2] with rows LDA apart.
+// bf16 hi (planes 0-3) and, exact, lo (planes 4-7), in core-matrix order.
 template <bool EXACT>
 struct SplitStore {
-  bf16* hi;
-  bf16* lo;
-  int n2;
+  bf16* planes;
+  int koff;  // plane_off's part of this thread's n2
   __device__ __forceinline__ void operator()(int k, int t, float v) const {
+    const int o = k * PLANE + koff + (t >> 3) * (PL_SBO / 2) + (t & 7) * 8;
     const bf16 h = __float2bfloat16_rn(v);
-    hi[k * PLANE + t * LDA + n2] = h;
-    if (EXACT) lo[k * PLANE + t * LDA + n2] = __float2bfloat16_rn(v - __bfloat162float(h));
+    planes[o] = h;
+    if (EXACT) planes[4 * PLANE + o] = __float2bfloat16_rn(v - __bfloat162float(h));
   }
 };
 
-// One r through outer stage, power and filterbank, with the block barriers
-// that separate the A planes, the power tile and the next writer. `k_re`:
-// the plane of a_re in the group; a_im, where r has one, is the next plane.
+// One r: the outer product over its stages, the power, split, to `pw`
+// ([TF][NB] hi, then lo), then the filterbank product. `a` is the a_re hi
+// plane; a_im, where r has one, is the next plane.
 template <bool EXACT>
-__device__ __forceinline__ void do_r(const Params& p, int r, const bf16* hi, const bf16* lo,
-                                     int k_re, bool has_im, bf16* p_hi, bf16* p_lo,
-                                     float (&mel)[MAX_FB_TILES][4]) {
-  // RHS blocks lie in r order: r = 0 is real-only, every r in between complex
-  const int k1 = (EXACT ? 3 : 1) * SEG_STEPS;
-  const int kstep0 = r == 0 ? 0 : k1 * (1 + 2 * (r - 1));
-  if (has_im) outer_power<EXACT, true>(p, kstep0, hi + k_re * PLANE, lo + k_re * PLANE, p_hi, p_lo);
-  else outer_power<EXACT, false>(p, kstep0, hi + k_re * PLANE, lo + k_re * PLANE, p_hi, p_lo);
-  __syncthreads();
-  fb_accumulate<EXACT>(p, r, p_hi, p_lo, mel);
-  __syncthreads();
+__device__ __forceinline__ void do_r(Ctx& x, int m_tiles, const bf16* a, bool has_im, bf16* pw,
+                                     float (&mel)[16]) {
+  float sum[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sum[i] = 0.f;
+  OuterOp<EXACT> outer{smem_u32(a), sum};
+  run_stages(x, outer, (has_im ? 2 : 1) * OuterOp<EXACT>::STEPS);
+
+  // row g of the thread's warp is x_re of bin q, row g + 8 its x_im
+  consumer_sync();  // every warpgroup is done with the previous r's power planes
+  const int g = x.lane >> 2, c = x.lane & 3;
+  const int q = 32 * x.wg + 8 * x.warp + g;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float xr = sum[4 * j + e], xi = sum[4 * j + 2 + e];
+      const float pv = xr * xr + xi * xi;
+      const int o = plane_off(8 * j + 2 * c + e, q);
+      const bf16 h = __float2bfloat16_rn(pv);
+      pw[o] = h;
+      if (EXACT) pw[PLANE + o] = __float2bfloat16_rn(pv - __bfloat162float(h));  // lo formed in f32
+    }
+  fence_async_smem();
+  consumer_sync();
+
+  constexpr int PARTS = EXACT ? 2 : 1;
+  const int rows = 64 * m_tiles;
+  const int ks_stage = min(8, stage_bytes<EXACT>() / (PARTS * rows * 32));  // k16 steps a stage
+  FbOp<EXACT> fb{smem_u32(pw), rows, ks_stage, 4 / m_tiles, x.wg % m_tiles, x.wg / m_tiles, mel};
+  run_stages(x, fb, 8 / ks_stage);
 }
 
 template <bool EXACT>
 __global__ void __launch_bounds__(NTHREADS, 1)
-mel_power_ct_split_kernel(Params p) {
-  extern __shared__ float smem[];
+mel_power_ct_split_kernel(const Params p) {
+  constexpr int PARTS = EXACT ? 2 : 1;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* ring = smem;
+  constexpr int SB = stage_bytes<EXACT>();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + p.stages * SB);  // full, then empty
+  float* aud = reinterpret_cast<float*>(bars + 2 * MAX_STAGES);  // [n_aud] scaled, clipped samples
   const int n_aud = (TF - 1) * p.hop + p.n_fft;
-  float* aud = smem;  // [n_aud] scaled, clipped samples
-  bf16* hi = reinterpret_cast<bf16*>(aud + ((n_aud + 3) & ~3));  // 4 x [TF][LDA] hi planes
-  bf16* lo = hi + 4 * PLANE;                                      // 4 x [TF][LDA] lo planes
-  bf16* p_hi = lo + 4 * PLANE;                                    // [TF][LDA] split power
-  bf16* p_lo = p_hi + PLANE;
+  bf16* planes = reinterpret_cast<bf16*>(aud + ((n_aud + 3) & ~3));  // 4 hi planes, then 4 lo (exact)
+  bf16* pw = planes + 4 * PARTS * PLANE;                              // the split power: hi, then lo
 
+  const int tid = threadIdx.x;
+  const int warp_id = __shfl_sync(0xffffffffu, tid >> 5, 0);  // warp-uniform, for the roles and wgmma
   const int b = blockIdx.y;
   const int t_base = blockIdx.x * TF;
-  const float* yrow = p.y + (long long)b * p.L;
-  const float s = p.scale != nullptr ? p.scale[b] : -1.f;
+  const uint32_t full0 = smem_u32(bars);
 
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);                      // the producer's expect_tx
+      mbar_init(full0 + 8 * (MAX_STAGES + s), NCONS / 32);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");  // visible to the bulk copies
+  }
   // the window and the inner stage run in f32 in both modes
-  stage_audio(aud, n_aud, yrow, p.L,
-                     (long long)(p.frame0 + t_base) * p.hop, p.pad_l, s);
-  __syncthreads();
+  stage_audio(aud, n_aud, p.y + (long long)b * p.L, p.L, (long long)(p.frame0 + t_base) * p.hop, p.pad_l,
+              p.scale != nullptr ? p.scale[b] : -1.f);
+  __syncthreads();  // the barriers exist before any copy or arrival
 
-  float mel[MAX_FB_TILES][4];
-#pragma unroll
-  for (int j = 0; j < MAX_FB_TILES; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) mel[j][i] = 0.f;
-
-  const int n2 = threadIdx.x % NB;
-  const int tsub = threadIdx.x / NB;
-  const int R = p.R;
-  const SplitStore<EXACT> store{hi, lo, n2};
-
-  if (R == 16) {
-    float w[16];
-#pragma unroll
-    for (int n1 = 0; n1 < 16; ++n1) w[n1] = __ldg(p.win + n1 * NB + n2);
-    // groups by r0 = r mod 4: {0, 4, 8}, {1, 5}, {2, 6}, {3, 7}
-    inner_group16<0, TF>(0, aud, p.hop, w, p.wr, n2, tsub, store);
-    __syncthreads();
-    do_r<EXACT>(p, 0, hi, lo, 0, false, p_hi, p_lo, mel);
-    do_r<EXACT>(p, 4, hi, lo, 1, true, p_hi, p_lo, mel);
-    do_r<EXACT>(p, 8, hi, lo, 3, false, p_hi, p_lo, mel);
-    inner_group16<0, TF>(1, aud, p.hop, w, p.wr, n2, tsub, store);
-    __syncthreads();
-    do_r<EXACT>(p, 1, hi, lo, 0, true, p_hi, p_lo, mel);
-    do_r<EXACT>(p, 5, hi, lo, 2, true, p_hi, p_lo, mel);
-    inner_group16<0, TF>(2, aud, p.hop, w, p.wr, n2, tsub, store);
-    __syncthreads();
-    do_r<EXACT>(p, 2, hi, lo, 0, true, p_hi, p_lo, mel);
-    do_r<EXACT>(p, 6, hi, lo, 2, true, p_hi, p_lo, mel);
-    inner_group16<0, TF>(3, aud, p.hop, w, p.wr, n2, tsub, store);
-    __syncthreads();
-    do_r<EXACT>(p, 3, hi, lo, 0, true, p_hi, p_lo, mel);
-    do_r<EXACT>(p, 7, hi, lo, 2, true, p_hi, p_lo, mel);
+  if (warp_id >= NCONS / 32) {
+    // the producer: lane 0 streams the table, each stage as soon as its slot
+    // is free
+    if (tid == NCONS) {
+      int slot = 0;
+      uint32_t phase = 0;  // parity of the slot's fill; its `empty` phase to wait for is the other
+      for (int i = 0; i < p.n_stages; ++i) {
+        mbar_wait(full0 + 8 * (MAX_STAGES + slot), phase ^ 1);
+        mbar_expect_tx(full0 + 8 * slot, SB);
+        bulk_copy(smem_u32(ring + slot * SB), p.tab + (size_t)i * SB, SB, full0 + 8 * slot);
+        if (++slot == p.stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    __syncwarp();
   } else {
-    // literal-weight R-point DFT, one r at a time
-    for (int r = 0; r <= R / 2; ++r) {
-      inner_generic<0, TF>(aud, p.hop, p.win, p.wr, R, r, n2, tsub, store);
-      __syncthreads();
-      do_r<EXACT>(p, r, hi, lo, 0, !(r == 0 || 2 * r == R), p_hi, p_lo, mel);
-    }
-  }
+    Ctx x{smem_u32(ring), SB, full0, p.stages, warp_id >> 2, warp_id & 3, tid & 31, 0, 0u};
+    float mel[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) mel[i] = 0.f;
 
-  // store, masking the ragged frame edge and the padded mel columns
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, c = lane & 3;
+    const int n2 = tid % NB;
+    const int tsub = tid / NB;
+    const int R = p.R;
+    const SplitStore<EXACT> store{planes, plane_off(0, n2)};
+    const int mtl = p.m_tiles;
+
+    if (R == 16) {
+      // groups by r0 = r mod 4: {0, 4, 8}, {1, 5}, {2, 6}, {3, 7}, the
+      // stream's order
 #pragma unroll
-  for (int j = 0; j < MAX_FB_TILES; ++j) {
-    const int tile = warp + 16 * j;
-    const int mt = tile & 1, nt = tile >> 1;
+      for (int r0 = 0; r0 < 4; ++r0) {
+        float w[16];  // loaded for each group: not live across the products
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t_base + 16 * mt + g + 8 * (i >> 1);
-      const int m = 8 * nt + 2 * c + (i & 1);
-      if (t < p.T && m < p.n_mels) p.out[((long long)b * p.T + t) * p.n_mels + m] = mel[j][i];
+        for (int n1 = 0; n1 < 16; ++n1) w[n1] = __ldg(p.win + n1 * NB + n2);
+        inner_group16<0, TF>(r0, aud, p.hop, w, p.wr, n2, tsub, store);
+        fence_async_smem();
+        consumer_sync();
+        if (r0 == 0) {
+          do_r<EXACT>(x, mtl, planes, false, pw, mel);              // r = 0
+          do_r<EXACT>(x, mtl, planes + PLANE, true, pw, mel);       // r = 4
+          do_r<EXACT>(x, mtl, planes + 3 * PLANE, false, pw, mel);  // r = 8
+        } else {
+          do_r<EXACT>(x, mtl, planes, true, pw, mel);               // r = r0
+          do_r<EXACT>(x, mtl, planes + 2 * PLANE, true, pw, mel);   // r = r0 + 4
+        }
+      }
+    } else {
+      // literal-weight R-point DFT, one r at a time
+      for (int r = 0; r <= R / 2; ++r) {
+        inner_generic<0, TF>(aud, p.hop, p.win, p.wr, R, r, n2, tsub, store);
+        fence_async_smem();
+        consumer_sync();
+        do_r<EXACT>(x, mtl, planes, !(r == 0 || 2 * r == R), pw, mel);
+      }
+    }
+
+    // the warpgroups' running mels meet in shared memory (over the planes,
+    // which every product is done with), added in a fixed order
+    consumer_sync();
+    float* red = reinterpret_cast<float*>(planes);  // [4 warpgroups][64 rows][TF]
+    {
+      const int g = x.lane >> 2, c = x.lane & 3;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            red[(x.wg * 64 + 16 * x.warp + g + 8 * h) * TF + 8 * j + 2 * c + e] = mel[4 * j + 2 * h + e];
+    }
+    consumer_sync();
+    for (int i = tid; i < TF * p.n_mels; i += NCONS) {
+      const int t = i / p.n_mels, m = i % p.n_mels;
+      if (t_base + t >= p.T) break;
+      const int o = (m & 63) * TF + t;
+      const float v = mtl == 1 ? ((red[o] + red[64 * TF + o]) + red[128 * TF + o]) + red[192 * TF + o]
+                               : red[(m >> 6) * 64 * TF + o] + red[((m >> 6) + 2) * 64 * TF + o];
+      p.out[((long long)b * p.T + t_base + t) * p.n_mels + m] = v;
     }
   }
+}
+
+int n_stages_of(int R, int n_mels, bool exact) {
+  const int m_tiles = (n_mels + 63) / 64;
+  const int outer = exact ? 8 : 2;                               // stages a component
+  const int sb = exact ? stage_bytes<true>() : stage_bytes<false>();
+  const int steps = sb / ((exact ? 2 : 1) * 64 * m_tiles * 32);
+  const int fb = 8 / (steps < 8 ? steps : 8);  // stages a filterbank block
+  int n = 0;
+  for (int r = 0; r <= R / 2; ++r) n += ((r == 0 || 2 * r == R) ? 1 : 2) * outer + fb;
+  return n;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) the kernel needs for (n_fft, hop), either mode.
-long long mel_power_ct_split_smem_bytes(int n_fft, int hop) {
+// Shared memory (bytes) of the kernel with `stages` ring slots.
+long long mel_power_ct_split_smem_bytes(int n_fft, int hop, int stages, int bf16_mode) {
   const long long n_aud = (long long)(TF - 1) * hop + n_fft;
-  return ((n_aud + 3) & ~3LL) * (long long)sizeof(float) + 10LL * PLANE * (long long)sizeof(bf16);
+  const int parts = bf16_mode ? 1 : 2;
+  return (long long)stages * (bf16_mode ? stage_bytes<false>() : stage_bytes<true>()) + 16LL * MAX_STAGES + ((n_aud + 3) & ~3LL) * 4 +
+         5LL * parts * PLANE * (long long)sizeof(bf16);
+}
+
+// Stages of the table stream for (n_fft, n_mels) and the mode.
+int mel_power_ct_split_n_stages(int n_fft, int n_mels, int bf16_mode) {
+  return n_stages_of(n_fft / NB, n_mels, !bf16_mode);
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// `rhs` / `fb` are the fragment tables of the mode (`bf16` != 0: the bf16
-// mode's), as ops/mel_kernel.py `ct_fragment_tables` builds them.
-int mel_power_ct_split_launch(const float* y, long long L, const float* scale,
-                              const void* rhs, const void* fb, const float* win,
-                              const float* wr, float* out, int B, int T, int frame0,
-                              int pad_l, int n_fft, int hop, int n_mels, int bf16,
+// `tab` is the mode's table stream, as ops/mel_kernel.py `ct_fused_tables`
+// builds it.
+int mel_power_ct_split_launch(const float* y, long long L, const float* scale, const void* tab,
+                              const float* win, const float* wr, float* out, int B, int T, int frame0,
+                              int pad_l, int n_fft, int hop, int n_mels, int stages, int bf16_mode,
                               void* stream) {
-  if (n_fft % NB != 0 || n_fft < 2 * NB || n_mels < 1 || n_mels > 64 * MAX_FB_TILES ||
-      B < 1 || T < 1 || B > 65535 || hop < 1 || frame0 < 0 || pad_l < 0)
+  if (n_fft % NB != 0 || n_fft < 2 * NB || n_mels < 1 || n_mels > 128 || B < 1 || T < 1 || B > 65535 ||
+      hop < 1 || frame0 < 0 || pad_l < 0 || stages < 2 || stages > MAX_STAGES)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.y = y; p.scale = scale; p.win = win; p.wr = wr;
-  p.rhs = static_cast<const uint4*>(rhs); p.fb = static_cast<const uint2*>(fb);
-  p.out = out; p.L = L; p.T = T; p.n_fft = n_fft; p.hop = hop;
+  p.tab = static_cast<const uint8_t*>(tab);
+  p.out = out; p.L = L; p.B = B; p.T = T; p.n_fft = n_fft; p.hop = hop;
   p.n_mels = n_mels; p.R = n_fft / NB; p.frame0 = frame0; p.pad_l = pad_l;
-  const long long smem = mel_power_ct_split_smem_bytes(n_fft, hop);
-  auto kernel = bf16 ? mel_power_ct_split_kernel<false> : mel_power_ct_split_kernel<true>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  p.stages = stages;
+  p.n_stages = n_stages_of(p.R, n_mels, !bf16_mode);
+  p.m_tiles = (n_mels + 63) / 64;
+  const long long smem = mel_power_ct_split_smem_bytes(n_fft, hop, stages, bf16_mode);
+  auto kernel = bf16_mode ? mel_power_ct_split_kernel<false> : mel_power_ct_split_kernel<true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + TF - 1) / TF, B);
-  kernel<<<grid, NTHREADS, (size_t)smem, (cudaStream_t)stream>>>(p);
+  kernel<<<dim3((T + TF - 1) / TF, B), NTHREADS, (size_t)smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

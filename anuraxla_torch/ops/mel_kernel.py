@@ -13,8 +13,10 @@ three TPU kernels and ``mel_power_pallas``, the function that selects one.
   filterbank of the dense kernel, frequency axis zero-padded to 128s.
 - ``ct_tables_folded_cat``: the concatenated-operand tables of the
   reference's ``_ct_tables_folded_cat`` (``fused_dots=True``), bitwise, and
-  ``ct_fragment_tables``: the same values in the order the tensor cores'
-  ``mma`` fragments read them. ``ct_split_fragment_tables``: ``ct_tables_folded``
+  ``ct_fused_tables``: their distinct blocks (the third row block of each r
+  repeats the first) as the split kernel streams them, in stages (16 KB
+  exact, 32 KB bf16) of ``wgmma`` core matrices; ``ct_fused_tile``: its
+  frame tile and ring. ``ct_split_fragment_tables``: ``ct_tables_folded``
   split into bf16 (hi, lo) pairs (or rounded to bf16), each stored once, in
   the Cooley–Tukey kernel's fragment order; ``ct_tile``: its frame tile.
   ``dense_fragment_tables``: ``dense_tables``
@@ -53,7 +55,8 @@ the reference's ``_ct_outer_stage``; ``csrc/mel_power_dense.cu``: the dense
 kernel's).
 ``fused_dots=True`` is the kernel-study variant (``csrc/mel_power_ct_split.cu``):
 the outer stage as one deep product per r over bf16 hi/lo split operands, on
-the tensor cores.
+Hopper's warpgroup products (``wgmma``), the table streamed through shared
+memory by TMA bulk copies.
 ``ablate=`` (profiling only, wrong output by design) drops classes of work
 from the Cooley–Tukey kernel at hop % 128 == 0; its launches count under the
 kernel's own name.
@@ -273,32 +276,77 @@ def _mma_b_fragments(B: torch.Tensor, tile_cols) -> torch.Tensor:
     return (lo | (hi << 16)).to(torch.int32).contiguous()
 
 
+def fused_r_order(R: int) -> list:
+    """The r in the order the split kernel consumes them: the inner stage's
+    groups for R = 16 (r mod 4 = 0, 1, 2, 3: 0 4 8 1 5 2 6 3 7), else 0 .. R/2."""
+    return [0, 4, 8, 1, 5, 2, 6, 3, 7] if R == 16 else list(range(R // 2 + 1))
+
+
+def _core_matrices(a: torch.Tensor) -> torch.Tensor:
+    """A [M, K] matrix (M % 8 == 0, K % 16 == 0) flat in the no-swizzle
+    K-major order ``wgmma`` reads from shared memory: k16 step, 8-row group,
+    8-column half, then the 8 x 8 core matrix row by row (16 B a row)."""
+    M, K = a.shape
+    return a.reshape(M // 8, 8, K // 16, 2, 8).permute(2, 0, 3, 1, 4).reshape(-1)
+
+
+def fused_stage_values(exact: bool) -> int:
+    """bf16 values of one stage of the split kernel's table stream: 16 KB in
+    the exact mode (a k16 step of T_hi and T_lo), 32 KB in the bf16 mode
+    (four k16 steps of T_hi)."""
+    return 8192 if exact else 16384
+
+
+def fused_outer_columns() -> torch.Tensor:
+    """The cat table's column of each M row of the split kernel's outer
+    product: row m holds bin q = 32(m >> 6) + 8((m >> 4) & 3) + (m & 7), x_re
+    where (m >> 3) & 1 == 0 and x_im (column q + 128) where it is 1, so that
+    a thread's wgmma accumulators hold both parts of its bins."""
+    m = torch.arange(256)
+    return 32 * (m >> 6) + 8 * ((m >> 4) & 3) + (m & 7) + 128 * ((m >> 3) & 1)
+
+
 @functools.lru_cache(maxsize=8)
-def ct_fragment_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, exact: bool):
-    """(rhs_frag, fb_frag) int32 tensors: ``ct_tables_folded_cat`` as
-    ``csrc/mel_power_ct_split.cu`` reads it. ``rhs_frag`` [sum_r K_r/16, 16, 32, 4]
-    holds the RHS blocks in r order (real or complex as r needs); warp w's
-    four words a lane are the fragments of the x_re columns 8w.. and of the
-    x_im columns 128 + 8w... ``fb_frag`` [n_half*K1/16, ceil(n_mels/8), 32, 2]
-    holds the filterbank blocks, mel columns zero-padded to a multiple of 8."""
+def ct_fused_tables(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, exact: bool) -> torch.Tensor:
+    """bf16 [n_stages, :func:`fused_stage_values`]: the distinct blocks of :func:`ct_tables_folded_cat`
+    as ``csrc/mel_power_ct_split.cu`` streams them, value for value.
+
+    For each r in :func:`fused_r_order`: the outer product's stages, one k16
+    step of T_hi then T_lo (exact; four k16 steps of T_hi in the bf16 mode) of
+    each component (the ``ar`` rows, then the ``ai`` rows of a complex r),
+    transposed to [256 M rows (:func:`fused_outer_columns`), K = n2]; then the
+    filterbank's, F_hi then F_lo transposed to [mels zero-padded to 64 or 128,
+    K = q], as many q a stage as it holds (at most one r's 128), zero-padded
+    to :func:`fused_stage_values`. The cat table's third row block
+    of each r (T_hi again, against a_lo) is not stored: the kernel reads the
+    hi tile for both segments. Each matrix in :func:`_core_matrices` order."""
     R = n_fft // 128
     _, rhs_real, rhs_cplx, fbcat = ct_tables_folded_cat(sr, n_fft, n_mels, fmin, fmax, exact)
     K1 = 384 if exact else 128
-    tiles = [c for w in range(16) for c in (8 * w, 128 + 8 * w)]
-    frags, i_real, i_cplx = [], 0, 0
+    parts = 2 if exact else 1  # hi, lo: the cat blocks' rows 0-127 and 128-255
+    cols = fused_outer_columns()
+    rows = 64 * -(-n_mels // 64)
+    fb = F.pad(fbcat.float(), (0, rows - n_mels)).to(torch.bfloat16)
+    size = fused_stage_values(exact)
+    k_outer = 16 if exact else 64  # K of an outer stage: one k16 step of hi and lo, or four of hi
+    k_fb = min(128, size // (parts * rows))
+    blocks, i_real, i_cplx = {}, 0, 0
     for r in range(R // 2 + 1):
         if r == 0 or 2 * r == R:
-            block = rhs_real[i_real * K1 : (i_real + 1) * K1]
+            blocks[r] = rhs_real[i_real * K1 : (i_real + 1) * K1]
             i_real += 1
         else:
-            block = rhs_cplx[i_cplx * 2 * K1 : (i_cplx + 1) * 2 * K1]
+            blocks[r] = rhs_cplx[i_cplx * 2 * K1 : (i_cplx + 1) * 2 * K1]
             i_cplx += 1
-        # [k, (warp, re|im), lane, word] -> [k, warp, lane, (re|im, word)]
-        frag = _mma_b_fragments(block, tiles).reshape(-1, 16, 2, 32, 2)
-        frags.append(frag.permute(0, 1, 3, 2, 4).reshape(-1, 16, 32, 4))
-    n_tiles = -(-n_mels // 8)
-    fb = F.pad(fbcat.float(), (0, 8 * n_tiles - n_mels)).to(torch.bfloat16)
-    return torch.cat(frags).contiguous(), _mma_b_fragments(fb, range(0, 8 * n_tiles, 8))
+    stages = []
+    for r in fused_r_order(R):
+        for comp in range(blocks[r].shape[0] // K1):
+            seg = blocks[r][comp * K1 : (comp + 1) * K1]
+            mats = [seg[i * 128 : (i + 1) * 128][:, cols].T for i in range(parts)]
+            stages += [torch.cat([_core_matrices(m[:, k : k + k_outer]) for m in mats]) for k in range(0, 128, k_outer)]
+        mats = [fb[r * K1 + i * 128 : r * K1 + (i + 1) * 128].T for i in range(parts)]
+        stages += [torch.cat([_core_matrices(m[:, k : k + k_fb]) for m in mats]) for k in range(0, 128, k_fb)]
+    return torch.stack([F.pad(t, (0, size - t.numel())) for t in stages]).contiguous()
 
 
 @functools.lru_cache(maxsize=8)
@@ -395,8 +443,8 @@ def _tables(cfg: MelConfig, device: torch.device, algorithm: str = "ct", exact: 
     """The kernel's tables on ``device`` — ct: (C, S, FBM, win, wr) and dense:
     (C, S, FB) as f32 tensors, C/S/FBM/FB holding bf16 values with
     ``exact=False``; "ct_cat": (rhs_real, rhs_cplx, fbcat, win, wr) of
-    ``ct_tables_folded_cat`` as f32 tensors; "ct_frag": (rhs_frag, fb_frag,
-    win, wr), the int32 fragment tables of the concatenated-operand kernel;
+    ``ct_tables_folded_cat`` as f32 tensors; "ct_fused": (stream, win, wr), the
+    table stream of the concatenated-operand kernel (``ct_fused_tables``);
     "ct_split_frag": (rhs_frag, fb_frag, win, wr) of
     ``ct_split_fragment_tables``; "dense_frag": (basis_frag, fb_frag) of
     ``dense_fragment_tables``."""
@@ -416,9 +464,9 @@ def _device_tables(sr, n_fft, n_mels, fmin, fmax, device: str, algorithm: str, e
     elif algorithm == "ct_split_frag":
         mats = list(ct_split_fragment_tables(*args, exact))
         rest = [torch.from_numpy(ct_tables_folded(*args)[3]), torch.from_numpy(inner_weights(n_fft // 128))]
-    elif algorithm in ("ct_cat", "ct_frag"):
+    elif algorithm in ("ct_cat", "ct_fused"):
         win, *cat = ct_tables_folded_cat(*args, exact)
-        mats = [t.float() for t in cat] if algorithm == "ct_cat" else list(ct_fragment_tables(*args, exact))
+        mats = [t.float() for t in cat] if algorithm == "ct_cat" else [ct_fused_tables(*args, exact)]
         rest = [torch.from_numpy(win), torch.from_numpy(inner_weights(n_fft // 128))]
     else:
         *mats, win = ct_tables_folded(*args)
@@ -745,16 +793,20 @@ def _lib(name: str):
         # y, L, scale, rhs_frag, fb_frag, win, wr, out, B, T, frame0, pad_l, n_fft, hop, n_mels, tf, bf16,
         # ablate, stream
         "mel_power_ct": [vp, i64, vp, vp, vp, vp, vp, vp, *[i32] * 10, vp],
-        # y, L, scale, rhs_frag, fb_frag, win, wr, out, B, T, frame0, pad_l, n_fft, hop, n_mels, bf16, stream
-        "mel_power_ct_split": [vp, i64, vp, vp, vp, vp, vp, vp, *[i32] * 8, vp],
+        # y, L, scale, stream table, win, wr, out, B, T, frame0, pad_l, n_fft, hop, n_mels, stages, bf16,
+        # stream
+        "mel_power_ct_split": [vp, i64, vp, vp, vp, vp, vp, *[i32] * 9, vp],
         # y, L, scale, basis_frag, fb_frag, out, B, T, frame0, pad_l, n_fft, hop, n_mels, tf, ksteps,
         # stages, bf16, stream
         "mel_power_dense": [vp, i64, vp, vp, vp, vp, *[i32] * 11, vp],
     }[source]
     launch.restype = i32
     smem = getattr(lib, f"{source}_smem_bytes")
-    smem.argtypes = [i32] * {"mel_power_dense": 6, "mel_power_ct": 4}.get(source, 2)
+    smem.argtypes = [i32] * {"mel_power_dense": 6, "mel_power_ct": 4, "mel_power_ct_split": 4}[source]
     smem.restype = i64
+    if source == "mel_power_ct_split":
+        lib.mel_power_ct_split_n_stages.argtypes = [i32] * 3
+        lib.mel_power_ct_split_n_stages.restype = i32
     return lib
 
 
@@ -807,6 +859,42 @@ def ct_tile(n_fft: int, hop: int, exact: bool) -> int | None:
     return next((t for t in CT_TILES if ct_smem_bytes(n_fft, hop, t, exact) <= SMEM_LIMIT), None)
 
 
+# the split kernel (fused_dots=True): frames a block, and its ring stages in
+# the order it prefers them (the deepest ring that fits)
+FUSED_TF = 32
+FUSED_PLANE_BYTES = 8 * 1184  # a [32][128] bf16 plane, its core matrices' strides padded against bank conflicts
+FUSED_RING = (4, 3, 2)
+
+
+def ct_fused_smem_bytes(n_fft: int, hop: int, stages: int, exact: bool) -> int:
+    """Shared memory (bytes) of the split kernel with ``stages`` ring slots of
+    :func:`fused_stage_values` (16 or 32 KB): the ring, eight mbarriers, the
+    f32 window of (32 - 1)·hop + n_fft samples and five [32][128] bf16 planes
+    of ``FUSED_PLANE_BYTES`` (four of the inner stage's group and the power),
+    twice with ``exact`` (hi and lo); the host's copy of
+    ``mel_power_ct_split_smem_bytes``."""
+    parts = 2 if exact else 1
+    n_aud = (FUSED_TF - 1) * hop + n_fft
+    return stages * 2 * fused_stage_values(exact) + 16 * max(FUSED_RING) + -(-n_aud // 4) * 16 + 5 * parts * FUSED_PLANE_BYTES
+
+
+def ct_fused_tile(n_fft: int, hop: int, exact: bool) -> tuple | None:
+    """(frames a block, ring stages) of the split kernel: the deepest ring
+    of ``FUSED_RING`` whose shared memory fits a block, or None."""
+    return next(((FUSED_TF, s) for s in FUSED_RING if ct_fused_smem_bytes(n_fft, hop, s, exact) <= SMEM_LIMIT), None)
+
+
+def ct_fused_n_stages(n_fft: int, n_mels: int, exact: bool) -> int:
+    """Stages of :func:`ct_fused_tables`: per r, 8 (exact) or 2 outer stages a
+    component and the filterbank's; the host's copy of
+    ``mel_power_ct_split_n_stages``."""
+    R = n_fft // 128
+    rows = 64 * -(-n_mels // 64)
+    parts = 2 if exact else 1
+    fb = 128 // min(128, fused_stage_values(exact) // (parts * rows))
+    return sum((1 if r == 0 or 2 * r == R else 2) * (8 if exact else 2) + fb for r in range(R // 2 + 1))
+
+
 def mel_power(
     y: torch.Tensor,
     cfg: MelConfig,
@@ -837,7 +925,7 @@ def mel_power(
     window, rows with s <= 0 pass through raw.
     ``fused_dots`` (ct only; the kernel study's variant): the outer stage as
     one product per r over concatenated bf16 hi/lo split operands on the
-    tensor cores.
+    tensor cores (``wgmma``).
     ``ablate`` (PROFILING ONLY — wrong output): classes of
     :func:`ablate_mask` dropped from the ct kernel at hop % 128 == 0, for
     ``probes/kernel_ablation.py``.
@@ -924,13 +1012,18 @@ def mel_power(
             )
         shape.append(tf)
     else:
-        smem = getattr(lib, f"{source}_smem_bytes")(cfg.n_fft, cfg.hop_length)
-        if smem > SMEM_LIMIT:
+        tile = ct_fused_tile(cfg.n_fft, cfg.hop_length, exact)
+        if tile is None:
             raise NotImplementedError(
-                f"n_fft={cfg.n_fft}, hop={cfg.hop_length} needs {smem} B of shared memory"
+                f"n_fft={cfg.n_fft}, hop={cfg.hop_length} needs "
+                f"{ct_fused_smem_bytes(cfg.n_fft, cfg.hop_length, FUSED_RING[-1], exact)} B of shared memory"
             )
-    kind = "ct_frag" if fused_dots else "dense_frag" if algorithm == "dense" else "ct_split_frag"
+        shape.append(tile[1])
+    kind = "ct_fused" if fused_dots else "dense_frag" if algorithm == "dense" else "ct_split_frag"
     tables = _tables(cfg, y.device, kind, exact)
+    if fused_dots and lib.mel_power_ct_split_n_stages(cfg.n_fft, cfg.n_mels, int(not exact)) != tables[0].shape[0]:
+        # the producer and the consumers would count different streams: a hang, not a launch
+        raise RuntimeError("the split kernel's table stream does not match the library's stage count")
     out = torch.empty((B, num_frames, cfg.n_mels), device=y.device, dtype=torch.float32)
     mode = [int(not exact)] + ([mask] if source == "mel_power_ct" else [])
     with torch.cuda.device(y.device):

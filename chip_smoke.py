@@ -62,17 +62,18 @@ failure exits non-zero):
    and the scan (windows/s, x realtime, extract and device ms a batch);
 7. the kernel study, after every serving phase so that those run as they did
    before it existed: hold the split-bf16 tensor-core kernel
-   (``fused_dots=True``) to its plain version, exact and bf16, at
-   ``DEFAULT_MEL`` pre-padded, at the fast tier's frame range, at hop 320 and
-   at R = 2, to the plain version with f64 sums, and the exact mode to the
-   plain f32 version; hold each ablated instantiation of the Cooley-Tukey
+   (``fused_dots=True``: a TMA ring, wgmma) to its plain version, exact and
+   bf16, at ``DEFAULT_MEL`` pre-padded, at the fast tier's frame range, at hop
+   320, at R = 2 and at an odd B = 63, to the plain version with f64
+   sums, and the exact mode to the plain f32 version; hold each ablated instantiation of the Cooley-Tukey
    kernel to its ablated plain version (six classes and their floor in the
    exact mode, four and theirs in the bf16 mode); drive the study path at full width
    (B = 1024, 626 frames), counts set to 0 just before: the variants sweep
    (hop 384 and hop 320), the pre-padded variants, the ablation probe (exact
    and bf16), the stage split and the three-leg bench, through the ``main`` of
    each module of ``anuraxla_torch.probes`` and of ``anuraxla_torch.bench``
-   (the split kernel's counts must move there); time the split kernel;
+   (the split kernel's counts must move there); time the split kernel, with
+   the L2 bytes of its table stream;
 8. print the kernels line (``mel_power_ct``'s also with its launches on the
    fit path; every kernel's on the evaluation path), the card's name and power limit, and last the device line.
 
@@ -198,15 +199,31 @@ def mel_work(cfg, fb: np.ndarray, B: int, T: int, L: int):
 def ct_split_flops(cfg, B: int, T: int, exact: bool) -> float:
     """Tensor-core flops the split kernel's form does: per r one product of
     depth K1 (real-only r) or 2 K1 into 256 columns and one of depth K1 into
-    the mels, K1 = 384 (hi, hi, lo segments) or 128 in the bf16 mode; its own
-    work, not its bound."""
+    the mels zero-padded to a 64-row wgmma tile, K1 = 384 (hi, hi, lo
+    segments) or 128 in the bf16 mode; its own work, not its bound."""
     R = cfg.n_fft // 128
     K1 = 384 if exact else 128
+    mel_rows = 64 * -(-cfg.n_mels // 64)
     fma = 0
     for r in range(R // 2 + 1):
         real = r == 0 or 2 * r == R
-        fma += (1 if real else 2) * K1 * 256 + K1 * cfg.n_mels
+        fma += (1 if real else 2) * K1 * 256 + K1 * mel_rows
     return 2.0 * fma * B * T
+
+
+def ct_split_l2_bytes(cfg, B: int, T: int, exact: bool) -> tuple:
+    """(bytes a batch, the first version's): the table bytes the split
+    kernel streams from L2, reckoned from its code. Every block (32 frames of
+    one row) reads the whole stream once (``ct_fused_tables``); the first
+    version of the kernel read its fragment tables, the cat tables' three row blocks
+    a r, once for every block of 32 frames."""
+    from anuraxla_torch.ops import mel_kernel as mk
+
+    blocks = -(-T // mk.FUSED_TF) * B
+    stream = mk.ct_fused_n_stages(cfg.n_fft, cfg.n_mels, exact) * 2 * mk.fused_stage_values(exact)
+    _, rhs_real, rhs_cplx, fbcat = mk.ct_tables_folded_cat(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax, exact)
+    first = 2 * (rhs_real.numel() + rhs_cplx.numel() + fbcat.shape[0] * 8 * -(-cfg.n_mels // 8))
+    return stream * blocks, first * blocks
 
 
 def dense_mma_flops(cfg, B: int, T: int, exact: bool) -> float:
@@ -318,6 +335,9 @@ STUDY_CASES = [
     Case("mel_power_ct_fused_bf16", "DEFAULT_MEL", 64, False, pre_padded=True, fused=True),
     Case("mel_power_ct_fused_bf16", "DEFAULT_MEL", 64, False, fast=True, fused=True),
     Case("mel_power_ct_fused_bf16", "hop320", 32, False, fused=True),
+    # an odd number of rows
+    Case("mel_power_ct_fused", "DEFAULT_MEL", 63, True, fast=True, fused=True),
+    Case("mel_power_ct_fused_bf16", "DEFAULT_MEL", 63, False, fused=True),
 ]
 # each wired ablation class and the probe's floor (every class of the mode):
 # six in the exact mode, the four that are not the split's in the bf16 mode;
@@ -676,7 +696,12 @@ def time_kernel(kernel: str, label: str, B: int, rng, *, exact: bool, algorithm:
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     if fused:
-        own, tile = ct_split_flops(cfg, B, T, exact), "32 frames a block"
+        tf, stages = mk.ct_fused_tile(cfg.n_fft, cfg.hop_length, exact)
+        own = ct_split_flops(cfg, B, T, exact)
+        l2, l2_first = ct_split_l2_bytes(cfg, B, T, exact)
+        tile = (f"{tf} frames a block, cluster size 1 (no multicast), {stages} ring stages of "
+                f"{mk.fused_stage_values(exact) // 512} KB; table stream "
+                f"{l2 / 1e9:.1f} GB a batch from L2 (the first version's {l2_first / 1e9:.1f} GB)")
     elif algorithm == "dense":
         own = dense_mma_flops(cfg, B, T, exact)
         tile = "(frames a block, k16 steps a ring buffer, buffers) = {}".format(
@@ -690,7 +715,7 @@ def time_kernel(kernel: str, label: str, B: int, rng, *, exact: bool, algorithm:
     win = torch.hann_window(cfg.n_fft, periodic=True, device="cuda")
     fb = torch.from_numpy(fb_np).cuda()
     library_ms = cuda_ms(lambda: library_mel(cfg, raw, first, T, fb, win), iters=5)
-    tables = mk._tables(cfg, x.device, "ct_frag" if fused else "dense_frag" if algorithm == "dense" else "ct_split_frag",
+    tables = mk._tables(cfg, x.device, "ct_fused" if fused else "dense_frag" if algorithm == "dense" else "ct_split_frag",
                         exact)
     plain_txt = f"{plain_ms:.3f} ms" if plain else "not timed"
     log(f"[times] {kernel} {label} B={B} frames {first}..{first + T - 1}: kernel {ms:.3f} ms, "
@@ -698,7 +723,7 @@ def time_kernel(kernel: str, label: str, B: int, rng, *, exact: bool, algorithm:
         f"bound {bound_ms:.3f} ms by {bound_by} (function's least work: {flops / 1e9:.2f} GFLOP "
         f"{'x 3 passes ' if passes == 3 else ''}-> {t_ops:.3f} ms at the bf16 peak, {nbytes / 1e9:.3f} GB -> "
         f"{t_bytes:.3f} ms) = {100 * bound_ms / ms:.2f}% of bound; the kernel's own form does {own / 1e12:.3f} "
-        f"TFLOP = {own / ms / 1e9:.2f} TFLOP/s on bf16 mma.sync; tile {tile}; "
+        f"TFLOP = {own / ms / 1e9:.2f} TFLOP/s on bf16 {'wgmma' if fused else 'mma.sync'}; tile {tile}; "
         f"tables at {[hex(t.data_ptr()) for t in tables]}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 config=f"{label} B={B} frames {first}..{first + T - 1}", tile=tile)

@@ -81,49 +81,169 @@ def test_cat_tables_bitwise(n_fft, exact):
         np.testing.assert_array_equal(got.float().numpy().view(np.uint32), want.view(np.uint32))
 
 
+def _read_stage(stage: np.ndarray, rows: int, steps: int, part: int) -> np.ndarray:
+    """bf16 bits [rows, 16·steps] of one part of a stream stage, read as the
+    kernel's wgmma descriptors address it: 8-row x 16-byte core matrices 128 B
+    apart along K and 256 B apart along M, k16 steps rows·32 B apart, parts
+    one after another."""
+    m = np.arange(rows)[:, None]
+    k = np.arange(16 * steps)[None, :]
+    off = (part * steps * rows * 32 + (k // 16) * rows * 32 + ((m // 8) * 2 + (k % 16) // 8) * 128
+           + (m % 8) * 16 + (k % 8) * 2)
+    return stage.view(np.uint16)[off // 2]
+
+
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "bf16"])
 @pytest.mark.parametrize("n_fft,n_mels", [(2048, 64), (384, 20), (256, 32)])
 def test_fragment_tables_hold_the_cat_tables(n_fft, n_mels, exact):
-    """The split kernel's tables, read back as ``mma.sync.m16n8k16`` reads a B
-    fragment (lane 4g + c: column g, rows 2c, 2c+1 in word 0 and 2c+8, 2c+9
-    in word 1), are the cat tables' blocks in r order."""
+    """The split kernel's table stream (``ct_fused_tables``), read back as its
+    wgmma descriptors read it, stage by stage in the order it consumes them,
+    is the cat tables' distinct blocks: T_hi and T_lo (exact) of each
+    component of each r, the columns in the kernel's M order, then F_hi and
+    F_lo, the mels zero-padded to 64. The third row block of each r, which
+    the stream leaves out, is bitwise the first: the fact the design rests
+    on."""
     args = (48000, n_fft, n_mels, 150.0, 15000.0, exact)
     _, rhs_real, rhs_cplx, fbcat = tk.ct_tables_folded_cat(*args)
-    rhs_frag, fb_frag = (t.numpy() for t in tk.ct_fragment_tables(*args))
-
-    def read_back(frag, tile_cols, n_cols):
-        """[K/16, tiles, 32, 2] int32 -> [K, n_cols] bf16 bit patterns."""
-        out = np.zeros((frag.shape[0] * 16, n_cols), np.uint16)
-        for lane in range(32):
-            g, c = lane // 4, lane % 4
-            for word in range(2):
-                w = frag[:, :, lane, word].astype(np.uint32)
-                for half, bits in enumerate((w & 0xFFFF, w >> 16)):
-                    for j, col0 in enumerate(tile_cols):
-                        out[2 * c + 8 * word + half :: 16, col0 + g] = bits[:, j]
-        return out
-
+    stream = tk.ct_fused_tables(*args).contiguous().view(torch.int16).numpy()
+    R, K1, parts = n_fft // 128, 384 if exact else 128, 2 if exact else 1
     bits = lambda t: t.contiguous().view(torch.int16).numpy().view(np.uint16)  # noqa: E731
-    R, K1 = n_fft // 128, 384 if exact else 128
-    blocks, i_real, i_cplx = [], 0, 0
+    blocks, i_real, i_cplx = {}, 0, 0
     for r in range(R // 2 + 1):
         if r == 0 or 2 * r == R:
-            blocks.append(rhs_real[i_real * K1 : (i_real + 1) * K1])
+            blocks[r] = bits(rhs_real[i_real * K1 : (i_real + 1) * K1])
             i_real += 1
         else:
-            blocks.append(rhs_cplx[i_cplx * 2 * K1 : (i_cplx + 1) * 2 * K1])
+            blocks[r] = bits(rhs_cplx[i_cplx * 2 * K1 : (i_cplx + 1) * 2 * K1])
             i_cplx += 1
-    want = bits(torch.cat(blocks))
-    assert rhs_frag.shape == (want.shape[0] // 16, 16, 32, 4)
-    # warp w's four words: the x_re tile's two, then the x_im tile's two
-    tiles = [c for w in range(16) for c in (8 * w, 128 + 8 * w)]
-    got = read_back(rhs_frag.reshape(-1, 16, 32, 2, 2).transpose(0, 1, 3, 2, 4).reshape(-1, 32, 32, 2), tiles, 256)
-    np.testing.assert_array_equal(got, want)
-    n_tiles = -(-n_mels // 8)
-    assert fb_frag.shape == (fbcat.shape[0] // 16, n_tiles, 32, 2)
-    got = read_back(fb_frag, range(0, 8 * n_tiles, 8), 8 * n_tiles)
-    np.testing.assert_array_equal(got[:, :n_mels], bits(fbcat))
-    assert not got[:, n_mels:].any()
+    fb = bits(fbcat)
+    cols = tk.fused_outer_columns().numpy()
+    rows_fb = 64 * -(-n_mels // 64)
+    size = tk.fused_stage_values(exact)
+    k_outer, k_fb = (16 if exact else 64), min(128, size // (parts * rows_fb))
+    assert stream.shape == (tk.ct_fused_n_stages(n_fft, n_mels, exact), size)
+    i = 0
+    for r in tk.fused_r_order(R):
+        for comp in range(blocks[r].shape[0] // K1):
+            seg = blocks[r][comp * K1 : (comp + 1) * K1]
+            if exact:
+                np.testing.assert_array_equal(seg[256:384], seg[0:128])  # (T_hi; T_lo; T_hi)
+            for k in range(0, 128, k_outer):
+                for part in range(parts):
+                    got = _read_stage(stream[i], 256, k_outer // 16, part)
+                    np.testing.assert_array_equal(got, seg[part * 128 + k : part * 128 + k + k_outer][:, cols].T)
+                i += 1
+        fseg = fb[r * K1 : (r + 1) * K1]
+        if exact:
+            np.testing.assert_array_equal(fseg[256:384], fseg[0:128])  # (F_hi; F_lo; F_hi)
+        for k in range(0, 128, k_fb):
+            for part in range(parts):
+                got = _read_stage(stream[i], rows_fb, k_fb // 16, part)
+                np.testing.assert_array_equal(got[:n_mels], fseg[part * 128 + k : part * 128 + k + k_fb].T)
+                assert not got[n_mels:].any()
+            assert not stream[i][parts * rows_fb * k_fb :].any()  # a stage's zero padding
+            i += 1
+    assert i == stream.shape[0]
+    # every bin's x_re and x_im sit 8 rows apart in the same warp's 16 rows
+    q, h = cols % 128, cols // 128
+    assert sorted(q[h == 0]) == list(range(128)) and np.array_equal(q[h == 0], q[h == 1])
+    assert np.array_equal(np.arange(256)[h == 1] - np.arange(256)[h == 0], np.full(128, 8))
+
+
+def _stream_emulation(cfg, y, scale, T, exact):
+    """The split kernel's arithmetic in f64 from its table stream, consumed
+    stage by stage as the kernel consumes it (the stream's r order, each
+    stage's parts and k16 steps at the descriptors' addresses, the power's
+    bins from the M rows of x_re and x_im)."""
+    R = cfg.n_fft // 128
+    stream = tk.ct_fused_tables(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax, exact)
+    stream = stream.contiguous().view(torch.int16).numpy()
+    parts = 2 if exact else 1
+    rows_fb = 64 * -(-cfg.n_mels // 64)
+    k_outer, k_fb = (16 if exact else 64), min(128, tk.fused_stage_values(exact) // (parts * rows_fb))
+    f64 = lambda bits: bits.astype(np.uint32).__lshift__(16).view(np.float32).astype(np.float64)  # noqa: E731
+    win = torch.from_numpy(tk.ct_tables_folded_cat(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax, exact)[0])
+    blocks = tk._ct_blocks(_centre(y, cfg), torch.from_numpy(scale), cfg, T, 0, win.double())
+    cols = tk.fused_outer_columns().numpy()
+    h = cols // 128
+    i, mel = 0, 0.0
+    for r in tk.fused_r_order(R):
+        x = 0.0
+        for a in (a for a in tk._inner_stage(blocks, R, r) if a is not None):
+            hi, lo = (t.numpy() for t in tk._split_bf16(a))
+            for k in range(0, 128, k_outer):
+                ks = slice(k, k + k_outer)
+                mats = [f64(_read_stage(stream[i], 256, k_outer // 16, part)) for part in range(parts)]
+                x = x + hi[..., ks] @ mats[0].T
+                if exact:
+                    x = x + hi[..., ks] @ mats[1].T + lo[..., ks] @ mats[0].T
+                i += 1
+        xr, xi = np.zeros(x.shape[:-1] + (128,)), np.zeros(x.shape[:-1] + (128,))
+        xr[..., cols[h == 0]] = x[..., h == 0]
+        xi[..., cols[h == 1] - 128] = x[..., h == 1]
+        p_hi, p_lo = (t.numpy() for t in tk._split_bf16(torch.from_numpy(xr * xr + xi * xi)))
+        for k in range(0, 128, k_fb):
+            ks = slice(k, k + k_fb)
+            mats = [f64(_read_stage(stream[i], rows_fb, k_fb // 16, part)) for part in range(parts)]
+            mel = mel + p_hi[..., ks] @ mats[0].T
+            if exact:
+                mel = mel + p_hi[..., ks] @ mats[1].T + p_lo[..., ks] @ mats[0].T
+            i += 1
+    assert i == stream.shape[0]
+    return mel[..., : cfg.n_mels]
+
+
+# one config for each stage layout: R = 16 (the inner stage's groups), another
+# R (one r at a time; odd R, a ragged mel tile), two mel tiles
+STREAM_CONFIGS = {"r16": dict(R16, duration=0.3), "n_fft384": dict(SMALL, n_fft=384, n_mels=20),
+                  "mels128": dict(R16, duration=0.3, n_mels=128)}
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "bf16"])
+@pytest.mark.parametrize("name", list(STREAM_CONFIGS))
+def test_stream_consumed_as_the_kernel_does_is_the_fused_function(name, exact):
+    """The table stream, consumed as the split kernel consumes it, gives the
+    fused plain version's function: f64 sums on both sides, so the two differ
+    only where an f64 power lands on the other side of a bf16 rounding point
+    of its split (2e-7 of a row's max at most; a misplaced column, part, step
+    or stage moves values by O(1))."""
+    cfg = MelConfig(**STREAM_CONFIGS[name])
+    y, scale = _rows(cfg, 2, seed=28)
+    T = cfg.total_frames
+    got = _stream_emulation(cfg, y, scale, T, exact)
+    want = tk.mel_power_ct_fused_plain(_centre(y, cfg), torch.from_numpy(scale), cfg, T, exact=exact,
+                                       sums=torch.float64).numpy()
+    rel = np.abs(got - want) / np.abs(want).max(axis=(1, 2), keepdims=True)
+    assert rel.max() <= 2e-7, rel.max()
+
+
+# every config the fused tests, the probes and chip_smoke.py's study cases take
+FUSED_CONFIGS = {
+    "r16": R16, "r16_2s": dict(R16, duration=2.0), "hop320": dict(R16, hop_length=320), "hop160": dict(R16, hop_length=160),
+    "r8_hop512": dict(R16, hop_length=512, n_fft=1024), "n_fft256": SMALL, "n_fft384": dict(SMALL, n_fft=384, n_mels=20),
+    "mels128": dict(R16, n_mels=128),
+}
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "bf16"])
+@pytest.mark.parametrize("name", list(FUSED_CONFIGS))
+def test_fused_shared_memory_and_tile(name, exact):
+    """The host's copy of the split kernel's shared memory, recounted here
+    part by part, and its tile: 32 frames and the deepest ring of stages (16
+    KB exact, 32 KB bf16) that fits a block; a hop whose window cannot fit is
+    refused."""
+    cfg = MelConfig(**FUSED_CONFIGS[name])
+    parts = 2 if exact else 1
+    n_aud = 31 * cfg.hop_length + cfg.n_fft
+    for stages in tk.FUSED_RING:
+        ring, bars, window = stages * (16384 if exact else 32768), 8 * 8, 4 * (-(-n_aud // 4) * 4)
+        planes = (4 * parts + parts) * 8 * 1184  # the group's planes and the power, hi (and lo): k16 steps 1184 B apart
+        assert tk.ct_fused_smem_bytes(cfg.n_fft, cfg.hop_length, stages, exact) == ring + bars + window + planes
+    tile = tk.ct_fused_tile(cfg.n_fft, cfg.hop_length, exact)
+    assert tile is not None and tile[0] == 32 == tk.FUSED_TF
+    fits = [s for s in tk.FUSED_RING if tk.ct_fused_smem_bytes(cfg.n_fft, cfg.hop_length, s, exact) <= tk.SMEM_LIMIT]
+    assert tile[1] == max(fits) and tile[1] >= 2
+    assert tk.ct_fused_tile(cfg.n_fft, 4096, exact) is None  # mel_power refuses it (test_torch_cuda.py)
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "bf16"])
