@@ -5,6 +5,8 @@ runs on the card unless ``--device cpu``.
 
 Reference script        -> command
 00_normalize_dataset_rms   normalize
+02_train_vae (TODO stub)   train-vae
+06_print_latent_coords     print-latents
 07_encode_wav_to_latent    encode-wav
 08_fit_radial_detector     fit-radial
 08b_fit_map_detector       fit-map
@@ -15,14 +17,15 @@ Reference script        -> command
 9100_spearman_rk_analysis  spearman-analysis
 9105_make_config_snapshot  snapshot-from-log
 9200_run_qout_grid         run-qout-grid
-(extra)                    scan-soundscape, calibrate-tau, bench
+(extra)                    make-synth-data, scan-soundscape, calibrate-tau, bench
 
-The JAX package's train-vae, print-latents, make-synth-data, ingest-encoder
-and ingest-decoder are not ported yet.
+The JAX package's ingest-encoder and ingest-decoder are not ported yet.
 """
 
 COMMANDS = {
     "normalize": "anuraxla_torch.cli.normalize",
+    "train-vae": "anuraxla_torch.cli.train_vae",
+    "print-latents": "anuraxla_torch.cli.print_latents",
     "encode-wav": "anuraxla_torch.cli.encode_wav",
     "fit-radial": "anuraxla_torch.cli.fit_radial",
     "fit-map": "anuraxla_torch.cli.fit_map",
@@ -35,12 +38,15 @@ COMMANDS = {
     "run-qout-grid": "anuraxla_torch.cli.run_qout_grid",
     "scan-soundscape": "anuraxla_torch.cli.scan_soundscape",
     "calibrate-tau": "anuraxla_torch.cli.calibrate_tau",
+    "make-synth-data": "anuraxla_torch.cli.make_synth_data",
     "bench": "anuraxla_torch.bench",
 }
 
 # numeric aliases matching the reference filenames
 ALIASES = {
     "00": "normalize",
+    "02": "train-vae",
+    "06": "print-latents",
     "07": "encode-wav",
     "08": "fit-radial",
     "08b": "fit-map",

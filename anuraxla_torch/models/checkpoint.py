@@ -1,14 +1,20 @@
-"""Encoder artifacts without flax — the port of the serving half of
-``anuraxla/models/checkpoint.py`` (``save_encoder``, ``load_encoder``,
-``default_encoder_artifact``, ``load_or_init_encoder``).
+"""Artifacts and train-state checkpoints without flax — the port of
+``anuraxla/models/checkpoint.py``.
 
-The artifact is the JAX package's own, so either package reads what the
+The artifacts are the JAX package's own, so either package reads what the
 other wrote:
-    <dir>/encoder.msgpack   the flax param tree, in flax's msgpack format
-    <dir>/encoder.json      the VAEConfig fields
+    <dir>/encoder.msgpack + encoder.json   an encoder (the VAEConfig fields)
+    <dir>/vae.msgpack + encoder.json       a full ConvVAE, native decoder
+    <dir>/decoder.msgpack + decoder.json   an IngestedDecoder (DecoderSpec fields)
 The msgpack bytes are read and written by ``utils.msgpack_codec`` (the
 card's machine has neither ``flax`` nor ``msgpack``), and the weights pass
 through ``models.convert`` (flax layout <-> ``state_dict``).
+
+Train-state checkpoints are the port's own format and do not interchange
+with the JAX package's orbax checkpoints: ``<ckpt_dir>/<step>/train_state.pt``
+(``torch.save`` of the model's ``state_dict``, the AdamW state and the step,
+which is also the count the learning-rate schedule reads); the latest step
+wins on restore.
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from anuraxla_torch.constants import DEFAULT_ENCODER_DIR
-from anuraxla_torch.models.convert import encoder_params_for_jax, encoder_state_from_jax
-from anuraxla_torch.models.vae import VAEConfig, init_encoder_params
+from anuraxla_torch.models.convert import (
+    encoder_params_for_jax, encoder_state_from_jax, ingested_decoder_slots, params_for_jax, state_from_jax, vae_slots,
+)
+from anuraxla_torch.models.vae import DecoderSpec, VAEConfig, init_encoder_params
 from anuraxla_torch.utils import msgpack_codec
 
 log = logging.getLogger(__name__)
@@ -60,6 +68,86 @@ def load_encoder(dir_path: str | Path) -> Tuple[Dict[str, torch.Tensor], VAEConf
     cfg = _cfg_from_dict(json.loads((dir_path / "encoder.json").read_text()))
     params = msgpack_codec.unpackb((dir_path / "encoder.msgpack").read_bytes())
     return encoder_state_from_jax(params, cfg), cfg
+
+
+def save_vae(dir_path: str | Path, cfg: VAEConfig, state: Dict[str, torch.Tensor]) -> Path:
+    """Full ``ConvVAE`` (native decoder) artifact: ``vae.msgpack`` + ``encoder.json``."""
+    dir_path = Path(dir_path)
+    dir_path.mkdir(parents=True, exist_ok=True)
+    (dir_path / "vae.msgpack").write_bytes(msgpack_codec.packb(params_for_jax(state, vae_slots(cfg))))
+    (dir_path / "encoder.json").write_text(json.dumps(_cfg_to_dict(cfg), indent=2))
+    return dir_path
+
+
+def load_vae(dir_path: str | Path) -> Tuple[Dict[str, torch.Tensor], VAEConfig]:
+    """-> (``ConvVAE`` ``state_dict``, cfg)."""
+    dir_path = Path(dir_path)
+    cfg = _cfg_from_dict(json.loads((dir_path / "encoder.json").read_text()))
+    params = msgpack_codec.unpackb((dir_path / "vae.msgpack").read_bytes())
+    return state_from_jax(params, vae_slots(cfg)), cfg
+
+
+def save_decoder(dir_path: str | Path, spec: DecoderSpec, state: Dict[str, torch.Tensor]) -> Path:
+    """``IngestedDecoder`` artifact: ``decoder.msgpack`` + ``decoder.json``."""
+    dir_path = Path(dir_path)
+    dir_path.mkdir(parents=True, exist_ok=True)
+    d = dataclasses.asdict(spec)
+    d["dense_widths"] = list(spec.dense_widths)
+    d["bottleneck_hw"] = list(spec.bottleneck_hw)
+    d["stack"] = [list(s) for s in spec.stack]
+    (dir_path / "decoder.msgpack").write_bytes(msgpack_codec.packb(params_for_jax(state, ingested_decoder_slots(spec))))
+    (dir_path / "decoder.json").write_text(json.dumps(d, indent=2))
+    return dir_path
+
+
+def load_decoder(dir_path: str | Path) -> Tuple[Dict[str, torch.Tensor], DecoderSpec]:
+    """-> (``IngestedDecoder`` ``state_dict``, spec)."""
+    dir_path = Path(dir_path)
+    d = json.loads((dir_path / "decoder.json").read_text())
+    d["dense_widths"] = tuple(d["dense_widths"])
+    d["bottleneck_hw"] = tuple(d["bottleneck_hw"])
+    d["stack"] = tuple((str(k), int(w)) for k, w in d["stack"])
+    spec = DecoderSpec(**d)
+    params = msgpack_codec.unpackb((dir_path / "decoder.msgpack").read_bytes())
+    return state_from_jax(params, ingested_decoder_slots(spec)), spec
+
+
+TRAIN_STATE_FILE = "train_state.pt"
+
+
+def save_train_state(ckpt_dir: str | Path, state, step: Optional[int] = None) -> Path:
+    """Write ``state`` (a ``models.train.TrainState``) to
+    ``<ckpt_dir>/<step>/train_state.pt``, through a temporary file so that a
+    cut run leaves no partial checkpoint behind."""
+    d = Path(ckpt_dir) / str(int(state.step if step is None else step))
+    d.mkdir(parents=True, exist_ok=True)
+    tmp = d / (TRAIN_STATE_FILE + ".tmp")
+    torch.save({"step": int(state.step), "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict()}, tmp)
+    tmp.replace(d / TRAIN_STATE_FILE)
+    return d
+
+
+def latest_step(ckpt_dir: str | Path) -> Optional[int]:
+    d = Path(ckpt_dir)
+    steps = [int(p.name) for p in d.iterdir() if p.name.isdigit() and (p / TRAIN_STATE_FILE).is_file()] \
+        if d.is_dir() else []
+    return max(steps, default=None)
+
+
+def restore_train_state(ckpt_dir: str | Path, template_state):
+    """Load the latest step under ``ckpt_dir`` into ``template_state`` (from
+    ``models.train.create_train_state`` of the same architecture, on the
+    device to train on) and return it."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    device = next(template_state.model.parameters()).device
+    blob = torch.load(Path(ckpt_dir) / str(step) / TRAIN_STATE_FILE, map_location=device, weights_only=True)
+    template_state.model.load_state_dict(blob["model"])
+    template_state.optimizer.load_state_dict(blob["optimizer"])
+    template_state.step = int(blob["step"])
+    return template_state
 
 
 def default_encoder_artifact(project_root: Path) -> Path:

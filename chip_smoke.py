@@ -60,7 +60,29 @@ failure exits non-zero):
    ``encode_array`` on the card, 32 windows' parity-tier latents equal to the
    CPU's; times of the benchmark's encode, the device sweep, each grid point
    and the scan (windows/s, x realtime, extract and device ms a batch);
-7. the kernel study, after every serving phase so that those run as they did
+7. the training path at full width (``DEFAULT_MEL``, default ``VAEConfig`` with
+   its native decoder, B = 64) from a project root: ``make-synth-data`` (4
+   species x 24 WAVs a split), ``train-vae`` (``--ckpt-dir --save-decoder``, KL
+   delay 2 and ramp 4) then ``train-vae --resume``, ``mel_power_ct``'s count
+   set to 0 just before and read after (once a batch); the loss, read from
+   the lines each run prints (step 0 and the final metrics), finite and
+   falling, the restored step the saved one; ``train-vae --serving-tier fast
+   --bf16`` for 4 steps (``mel_power_ct_bf16`` once a batch); one f32 train
+   step on the card held to the same step on the CPU (same params, eps and
+   mel batch, the card's: loss 1e-5, gradients 1e-4 of each tensor's max,
+   all but 1 % of the parameters within 1e-5 + 1e-4|p|), and the same step
+   with TF32 in the backward, which must fail the gradient gate; 3 steps,
+   save, restore, 3 more against 6 uninterrupted, bitwise under
+   deterministic cuDNN; the trained artifact served (``load_or_init_encoder``
+   with no fallback warning, ``EncoderSession`` balanced: 1e-2 of the
+   trained module's bf16 encoder, cosine >= 0.99 to its f32 one), fitted
+   (``fit-radial``) and evaluated (``evaluate-wav`` on 8 val WAVs, exit codes
+   equal to the fit's decisions); times of the train step (f32 and bf16
+   trunk: forward + backward and AdamW under events, host-bound; the whole
+   step enqueued behind a sleep kernel, the device's own time; examples/s of
+   each) and of the mel stream a batch (decode, transfer, ``mel_power_ct``,
+   epilogue);
+8. the kernel study, after every serving phase so that those run as they did
    before it existed: hold the split-bf16 tensor-core kernel
    (``fused_dots=True``: a TMA ring, wgmma) to its plain version, exact and
    bf16, at ``DEFAULT_MEL`` pre-padded, at the fast tier's frame range, at hop
@@ -74,8 +96,9 @@ failure exits non-zero):
    each module of ``anuraxla_torch.probes`` and of ``anuraxla_torch.bench``
    (the split kernel's counts must move there); time the split kernel, with
    the L2 bytes of its table stream;
-8. print the kernels line (``mel_power_ct``'s also with its launches on the
-   fit path; every kernel's on the evaluation path), the card's name and power limit, and last the device line.
+9. print the kernels line (``mel_power_ct``'s also with its launches on the
+   fit path, it and ``mel_power_ct_bf16`` on the training path; every
+   kernel's on the evaluation path), the card's name and power limit, and last the device line.
 
 ``--dense-checkpoints`` is a diagnostic: it also times the dense kernel between
 the phases and, last, with its fragment tables uploaded again at other
@@ -1530,6 +1553,379 @@ def phase_eval_path(seed: int, root: Path) -> dict:
     return {"launches": launches, "times": times}
 
 
+TRAIN_FILES = 24  # WAVs of each species and split in the training phase's tree (make-synth-data)
+TRAIN_B = 64
+TRAIN_STEPS, RESUME_STEPS = 48, 24  # the first train-vae run, then the resumed one
+FAST_STEPS = 4  # a train-vae run on the fast tier's features with a bf16 trunk
+TRAIN_CMP_B = 16  # rows of the card-vs-CPU step (the CPU side runs the full width too)
+TIME_STEPS = 10  # train steps timed, each on its own, after 3 of warm-up
+# a sleep kernel before each held step, long against the ~10-20 ms the host
+# takes to enqueue one (about 75-90 ms at the H100's 1.7-2 GHz)
+HOLD_CYCLES = 150_000_000
+# the CLI runs' peak lr: their 72 steps sit in the first third of the 200-step lr warmup, where the
+# default 3e-4 would move the loss too little for the check that it falls
+TRAIN_LR = 3e-3
+# card vs CPU, one f32 step from the same params, mel batch and eps: both sum
+# in f32 in other orders, and cuDNN may pick Winograd for a 3x3 conv. The first
+# Adam step moves each element by lr times the sign of its gradient, so an
+# element whose gradient sits at rounding level may step either way: all but 1 %
+# of the parameters within TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL of their value
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4  # of each tensor's largest gradient, as tests/test_torch_cuda.py holds it
+TRAIN_PARAM_ATOL, TRAIN_PARAM_RTOL = 1e-5, 1e-4
+TRAIN_BF16_TOL = 1e-2  # the served bf16 trunk against the trained module's, in bf16 too
+TRAIN_COS = 0.99  # the served bf16 trunk against the trained module's f32 encoder
+
+
+def phase_train_path(seed: int, root: Path) -> dict:
+    """The training path at full width (``DEFAULT_MEL``, default ``VAEConfig``
+    with its native decoder, B = 64) through the ``main`` of each CLI from a
+    project root: ``make-synth-data`` (4 species x 24 WAVs a split), then
+    ``train-vae`` with ``--ckpt-dir --save-decoder`` and a short KL delay and
+    ramp, then ``train-vae --resume``; ``mel_power_ct``'s count set to 0 just
+    before the first and read after the second. The loss, read from the lines
+    each run prints (step 0 and the final metrics), must be finite and fall,
+    the restored step equal the saved one. Then a few steps of
+    ``train-vae --serving-tier fast --bf16`` (``mel_power_ct_bf16`` once a
+    batch, counted on its own). Then, at the train-step
+    level: one f32 step on the card against the same step on the CPU (same
+    params, mel batch and eps), and the same step with TF32 on in the backward,
+    which the gradient gate must refuse; and k steps, save, restore, k more
+    against 2k
+    uninterrupted (cuDNN deterministic: bitwise). The trained artifact is
+    served (``load_or_init_encoder`` with no fallback warning,
+    ``EncoderSession`` in the balanced tier), fitted (``fit-radial``) and
+    evaluated (``evaluate-wav``, exit codes held to the fit's decisions).
+    Last, times: the train step at B = 64 in f32 and with a bf16 trunk
+    (forward + backward and optimizer under events, which the host's launches
+    bound; then the whole step enqueued behind a sleep kernel, so that it runs
+    back to back: the device's own time), the mel stream a batch (decode,
+    transfer, ``mel_power_ct``, epilogue). -> {"launches": {kernel: launches
+    on the path}, "times": {...}}."""
+    import argparse as ap
+    import ast
+    import logging
+
+    from anuraxla_torch.cli import evaluate_wav, fit_radial, make_synth_data, train_vae
+    from anuraxla_torch.cli.common import session_kwargs
+    from anuraxla_torch.config import load_config, priority_ranks, read_radial
+    from anuraxla_torch.constants import DEFAULT_ENCODER_DIR
+    from anuraxla_torch.constants import DEFAULT_MEL as cfg
+    from anuraxla_torch.detect.radial import radial_decide
+    from anuraxla_torch.models import checkpoint as ckpt
+    from anuraxla_torch.models.train import TrainConfig, create_train_state, make_train_step, vae_loss
+    from anuraxla_torch.models.vae import ConvVAE, ConvVAEEncoder, VAEConfig, encoder_params_from_vae
+    from anuraxla_torch.ops.frontend import log_mel_batch, mel_to_encoder_input
+    from anuraxla_torch.ops.mel_kernel import mel_power, reset_launches
+    from anuraxla_torch.pipeline.dataset import load_wav_batch, scan_species_tree
+    from anuraxla_torch.pipeline.session import EncoderSession
+    from anuraxla_torch.probes.common import card_line
+    from anuraxla_torch.utils.precision import exact_f32
+
+    smi = card_line()
+    times = {}
+
+    def run(name: str, main, argv: list) -> str:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        torch.cuda.synchronize()
+        log(f"[train-path] {name}: {time.perf_counter() - t0:.2f} s")
+        return buf.getvalue()
+
+    (root / "models").mkdir(parents=True)
+    with contextlib.chdir(root):  # the project root: train-vae's default artifact lands under models/
+        run("make-synth-data", make_synth_data.main, ["--root", ".", "--per-species", str(TRAIN_FILES),
+                                                      "--seed", str(seed)])
+        train = ["--root", "train_chunks", "--batch-size", str(TRAIN_B), "--io-threads", "8", "--lr",
+                 str(TRAIN_LR), "--kl-delay", "2", "--kl-warmup", "4", "--seed", str(seed)]
+        reset_launches()  # count only the training path from here
+        out1 = run("train-vae", train_vae.main, [*train, "--ckpt-dir", "ckpt", "--steps", str(TRAIN_STEPS),
+                                                 "--save-decoder"])
+        saved = ckpt.latest_step(root / "ckpt")
+        out2 = run("train-vae --resume", train_vae.main, [*train, "--ckpt-dir", "ckpt", "--steps", str(RESUME_STEPS),
+                                                          "--resume"])
+        launches = dict(mel_power.launches)
+        # the fast tier's features (crop-first, the kernel's bf16 mode) and a
+        # bf16 trunk, a few steps into an artifact of their own
+        reset_launches()
+        out3 = run("train-vae --serving-tier fast --bf16", train_vae.main,
+                   [*train, "--steps", str(FAST_STEPS), "--serving-tier", "fast", "--bf16", "--out", "fast"])
+        fast = dict(mel_power.launches)
+    for line in (out1 + out2).splitlines():
+        log(f"[train-path]   {line.replace(str(root), '<project>')}")
+
+    def first_and_final(out: str) -> tuple:
+        """-> (step 0's metrics, the final metrics) from the lines a run
+        prints: the loop logs every 50 steps, as the reference's."""
+        m = re.search(r"^step 0: loss=(\S+) recon=(\S+) kl=(\S+)$", out, re.M)
+        return dict(zip(("loss", "recon", "kl"), map(float, m.groups()))), ast.literal_eval(
+            re.search(r"final (\{.*\})$", out, re.M).group(1))
+
+    (m0, m47), (m48, m71) = first_and_final(out1), first_and_final(out2)
+    resumed = re.search(r"resumed from step (\d+)", out2)
+    log(f"[train-path] loss at steps 0, {TRAIN_STEPS - 1}, {TRAIN_STEPS}, {TRAIN_STEPS + RESUME_STEPS - 1}: "
+        f"{m0['loss']:.4f}, {m47['loss']:.4f}, {m48['loss']:.4f}, {m71['loss']:.4f}; recon {m0['recon']:.4f} -> "
+        f"{m71['recon']:.4f}; mel_power_ct launched {launches['mel_power_ct']} times; checkpoint step {saved}, "
+        f"restored {resumed and resumed.group(1)}")
+    if not all(np.isfinite(list(m.values())).all() for m in (m0, m47, m48, m71)):
+        raise AssertionError(f"training path: a loss is not finite: {m0}, {m47}, {m48}, {m71}")
+    # β is full from step 5: steps 48 and 71 weigh the same objective
+    if not (m71["loss"] < m48["loss"] and m71["recon"] < m0["recon"]):
+        raise AssertionError(f"training path: the loss did not fall (steps {TRAIN_STEPS} -> "
+                             f"{TRAIN_STEPS + RESUME_STEPS - 1}: {m48['loss']:.4f} -> {m71['loss']:.4f}; recon from "
+                             f"step 0: {m0['recon']:.4f} -> {m71['recon']:.4f})")
+    if not (saved == TRAIN_STEPS and resumed and int(resumed.group(1)) == saved
+            and ckpt.latest_step(root / "ckpt") == TRAIN_STEPS + RESUME_STEPS):
+        raise AssertionError(f"training path: checkpoint step {saved}, restored {resumed}")
+    f0, f3 = first_and_final(out3)
+    log(f"[train-path] fast tier, bf16 trunk: loss at steps 0 and {FAST_STEPS - 1} {f0['loss']:.4f}, "
+        f"{f3['loss']:.4f}; launches { {k: v for k, v in fast.items() if v} }; artifact "
+        f"{ckpt.load_encoder(root / 'fast')[1].dtype}")
+    if launches["mel_power_ct"] != TRAIN_STEPS + RESUME_STEPS or any(
+            v for k, v in launches.items() if k != "mel_power_ct"):
+        raise AssertionError(f"training path: launches {launches}, not mel_power_ct once a batch")
+    if fast["mel_power_ct_bf16"] != FAST_STEPS or any(v for k, v in fast.items() if k != "mel_power_ct_bf16") \
+            or not (np.isfinite(list(f0.values())).all() and np.isfinite(list(f3.values())).all()):
+        raise AssertionError(f"fast-tier training: launches {fast}, losses {f0}, {f3}")
+
+    # one batch's mel on the card (the kernel, held to its plain version above)
+    files = sorted(p for wavs in scan_species_tree(root / "train_chunks").values() for p in wavs)
+    audio = load_wav_batch(files[:TRAIN_B], sr=cfg.sr, num_samples=cfg.num_samples, num_threads=8).audio
+    mel_card = mel_to_encoder_input(log_mel_batch(torch.from_numpy(audio).cuda(), cfg))
+
+    # one f32 step on each side from the same params, mel batch and eps
+    vcfg = VAEConfig()
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10, beta=0.25, kl_delay_steps=0,
+                     kl_warmup_steps=0, seed=seed)
+    eps = torch.from_numpy(np.random.default_rng([seed, 9]).standard_normal((TRAIN_CMP_B, 128)).astype(np.float32))
+    batch = mel_card[:TRAIN_CMP_B].cpu()
+    step = make_train_step(tc.beta, seed=seed)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        _, st = create_train_state(vcfg, tc, device=dev)
+        t0 = time.perf_counter()
+        st, m = step(st, batch.to(dev), eps.to(dev))
+        res[dev] = ({k: float(v) for k, v in m.items()}, {k: p.grad.cpu() for k, p in st.model.named_parameters()},
+                    {k: v.cpu() for k, v in st.model.state_dict().items()}, time.perf_counter() - t0)
+    (mc, gc, pc, _), (mp, gp, pp, cpu_s) = res["cuda"], res["cpu"]
+
+    def grad_err(g: dict) -> float:
+        return max(float((g[k] - gp[k]).abs().max() / gp[k].abs().max().clamp_min(1e-30)) for k in gp)
+
+    loss_err = max(abs(mc[k] / mp[k] - 1) for k in mc)
+    d = torch.cat([(pc[k] - pp[k]).abs().ravel() for k in pp])
+    scale = torch.cat([pp[k].abs().ravel() for k in pp])
+    off = float((d > TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * scale).float().mean())
+    # the same step on the card with TF32 on in the backward alone (the forward
+    # holds it off itself): the fault the gradient gate is there to see
+    _, st = create_train_state(vcfg, tc)
+    with exact_f32():
+        loss, _ = vae_loss(st.model, batch.cuda(), eps.cuda(), tc.beta)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=True):
+            loss.backward()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    tf32_err = grad_err({k: p.grad.cpu() for k, p in st.model.named_parameters()})
+    log(f"[train-path] one f32 step at B={TRAIN_CMP_B} on the card's mel, card vs CPU ({cpu_s:.2f} s): loss "
+        f"{mc['loss']:.6f} / {mp['loss']:.6f}, worst relative of loss/recon/kl {loss_err:.3e} (gate "
+        f"{TRAIN_LOSS_RTOL}); gradients {grad_err(gc):.3e} of each tensor's max (gate {TRAIN_GRAD_TOL}); "
+        f"{off:.2e} of the params beyond {TRAIN_PARAM_ATOL} + {TRAIN_PARAM_RTOL}|p| (gate 0.01), the largest "
+        f"|d| {float(d.max()):.3e}; with TF32 in the backward the gradients read {tf32_err:.3e} (must fail the gate)")
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err(gc) <= TRAIN_GRAD_TOL and off <= 0.01):
+        raise AssertionError("the card's train step disagrees with the CPU's")
+    if tf32_err <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"TF32 in the backward passes the gradient gate ({tf32_err:.3e}): the gate cannot "
+                             "tell an f32 backward from a TF32 one")
+
+    # k steps, save, restore, k more against 2k uninterrupted (deterministic cuDNN)
+    k = 3
+    n = TRAIN_B // (2 * k)
+    batches = [mel_card[i * n:(i + 1) * n] for i in range(2 * k)]
+    tc = dataclasses.replace(tc, kl_delay_steps=1, kl_warmup_steps=2, warmup_steps=1)
+    step = make_train_step(tc.beta, tc.kl_warmup_steps, tc.kl_delay_steps, seed=seed)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        _, a = create_train_state(vcfg, tc)
+        for b in batches[:k]:
+            a, _ = step(a, b)
+        ckpt.save_train_state(root / "ckpt2", a)
+        _, a = create_train_state(vcfg, tc)
+        a = ckpt.restore_train_state(root / "ckpt2", a)
+        restored_step = a.step
+        for b in batches[k:]:
+            a, ma = step(a, b)
+        _, u = create_train_state(vcfg, tc)
+        for b in batches:
+            u, mu = step(u, b)
+    sa, su = a.model.state_dict(), u.model.state_dict()
+    diff = max(float((sa[n] - su[n]).abs().max()) for n in su)
+    log(f"[train-path] {k} steps, save, restore (step {restored_step}), {k} more vs {2 * k} uninterrupted "
+        f"(deterministic cuDNN): loss {float(ma['loss']):.6f} / {float(mu['loss']):.6f}, params max |d| {diff:.3e}")
+    if restored_step != k or diff != 0.0 or not torch.equal(ma["loss"], mu["loss"]):
+        raise AssertionError("a resumed run on the card differs from an uninterrupted one")
+
+    # serve what was trained: the default artifact, no fallback warning
+    art = root / DEFAULT_ENCODER_DIR
+    records = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = records.append
+    logging.getLogger("anuraxla_torch.models.checkpoint").addHandler(handler)
+    try:
+        params, ecfg = ckpt.load_or_init_encoder(None, root)
+    finally:
+        logging.getLogger("anuraxla_torch.models.checkpoint").removeHandler(handler)
+    if records:
+        raise AssertionError(f"the trained artifact was not found: {records[0].getMessage()}")
+    balanced = session_kwargs(ap.Namespace(serving_tier="balanced", batch_size=64, io_threads=8))
+    sess = EncoderSession(mel=cfg, project_root=root, **balanced).load()
+    served = torch.from_numpy(sess.encode_array(audio))
+    model = ConvVAE(ecfg)
+    model.load_state_dict(torch.load(root / "ckpt" / str(TRAIN_STEPS + RESUME_STEPS) / ckpt.TRAIN_STATE_FILE,
+                                     weights_only=True)["model"])
+    enc_state = encoder_params_from_vae(model.state_dict())
+    if any(not torch.equal(enc_state[n], params[n]) for n in params):
+        raise AssertionError("the encoder artifact is not the trained module's encoder")
+    mus = {}
+    for dtype in ("bfloat16", "float32"):
+        enc = ConvVAEEncoder(dataclasses.replace(ecfg, dtype=dtype)).cuda().eval()
+        enc.load_state_dict(enc_state)
+        with torch.inference_mode():
+            mus[dtype] = enc(mel_card)["mu"].cpu()
+    bf_err = float((served - mus["bfloat16"]).abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(served, mus["float32"], dim=1).min())
+    log(f"[train-path] served (balanced tier) vs the trained module's encoder on the same mel: bf16 max |d| "
+        f"{bf_err:.3e} (gate {TRAIN_BF16_TOL}), cosine to f32 >= {cos:.6f} (gate {TRAIN_COS})")
+    if not (bf_err <= TRAIN_BF16_TOL and cos >= TRAIN_COS):
+        raise AssertionError("the served artifact disagrees with the trained module")
+
+    tier = ["--config", "config.json", "--encoder", str(art), "--serving-tier", "balanced", "--io-threads", "8"]
+    held = [sorted((root / "val_chunks" / sp).glob("*.wav"))[i] for sp in sorted(scan_species_tree(
+        root / "val_chunks")) for i in (0, 1)]
+    exits = []
+    with contextlib.chdir(root):
+        run("fit-radial", fit_radial.main, ["--root", "train_chunks", *tier])
+        for wav in held:
+            try:
+                run(f"evaluate-wav {wav.parent.name}/{wav.name}", evaluate_wav.main, ["--wav", str(wav), *tier])
+            except SystemExit as e:
+                exits.append(e.code)
+    species, centroids, thresholds, _ = read_radial(load_config(root / "config.json"))
+    one = EncoderSession(mel=cfg, project_root=root, **dict(balanced, batch_size=1)).load()
+    Zh, ok, err = one.encode_paths(held)
+    if not ok.all():
+        raise AssertionError(f"held-out WAVs: {err}")
+    det = radial_decide(torch.from_numpy(Zh), torch.from_numpy(centroids), torch.from_numpy(thresholds),
+                        torch.from_numpy(priority_ranks(species)))[0]
+    want = [0 if d else 2 for d in det.tolist()]
+    log(f"[train-path] evaluate-wav exit codes {exits}; the fit's decisions {want}")
+    if exits != want:
+        raise AssertionError(f"served exit codes {exits} differ from the fit's decisions {want}")
+
+    # times after warm-up: the train step (events around each step's parts,
+    # which read the host's launch rate as well; then the whole step enqueued
+    # while a sleep kernel holds the card, so it runs without waiting for a
+    # launch: the device's own time), then the mel stream a batch
+    x = mel_card
+    eps = torch.randn(TRAIN_B, 128, device="cuda")
+
+    def spread(v: list) -> str:
+        return f"{np.median(v):.3f} ({min(v):.3f}-{max(v):.3f})"
+
+    def one_step(st):
+        st.optimizer.zero_grad(set_to_none=True)
+        loss, _ = vae_loss(st.model, x, eps, tc.beta)
+        loss.backward()
+
+    for dtype in ("float32", "bfloat16"):
+        _, st = create_train_state(dataclasses.replace(vcfg, dtype=dtype), tc)
+        fb, held = [], []
+        with exact_f32():
+            for it in range(3 + TIME_STEPS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                ev[0].record()
+                one_step(st)
+                ev[1].record()
+                st.optimizer.step()
+                ev[2].record()
+                if it >= 3:
+                    fb.append(ev)
+            for it in range(3 + TIME_STEPS):
+                torch.cuda.synchronize()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                t0 = time.perf_counter()
+                ev[0].record()
+                torch.cuda._sleep(HOLD_CYCLES)
+                ev[1].record()
+                one_step(st)
+                st.optimizer.step()
+                ev[2].record()
+                enqueued = (time.perf_counter() - t0) * 1e3
+                if it >= 3:
+                    held.append((ev, enqueued))
+        torch.cuda.synchronize()
+        f = [e[0].elapsed_time(e[1]) for e in fb]
+        o = [e[1].elapsed_time(e[2]) for e in fb]
+        step_ms = [a + b for a, b in zip(f, o)]
+        dev = [e[1].elapsed_time(e[2]) for e, _ in held]
+        slept = [e[0].elapsed_time(e[1]) for e, _ in held]
+        enq = [q for _, q in held]
+        # launch-free only if the host had enqueued the step before the sleep ended
+        launch_free = max(enq) < min(slept)
+        times[f"train step {dtype} ms"] = {
+            "forward+backward": float(np.median(f)), "optimizer": float(np.median(o)),
+            "step": [float(min(step_ms)), float(np.median(step_ms)), float(max(step_ms))],
+            "examples/s": TRAIN_B / float(np.median(step_ms)) * 1e3,
+            "device step": [float(min(dev)), float(np.median(dev)), float(max(dev))],
+            "device examples/s": TRAIN_B / float(np.median(dev)) * 1e3, "launch-free": bool(launch_free),
+        }
+        log(f"[times] train step at B={TRAIN_B}, {dtype} trunk, default VAEConfig, median (min-max) of "
+            f"{TIME_STEPS} after 3: events: forward + backward {spread(f)} ms, AdamW {spread(o)} ms, step "
+            f"{spread(step_ms)} ms = {TRAIN_B / np.median(step_ms) * 1e3:.1f} examples/s (host-bound); the step "
+            f"held behind a {np.median(slept):.1f} ms sleep (enqueued in {spread(enq)} ms, host clock; launch-free: "
+            f"{launch_free}): {spread(dev)} ms = {TRAIN_B / np.median(dev) * 1e3:.1f} examples/s (device); {smi}")
+    dec, h2d = [], []
+    for it in range(6):
+        t0 = time.perf_counter()
+        rows = load_wav_batch(files[:TRAIN_B], sr=cfg.sr, num_samples=cfg.num_samples, num_threads=8).audio
+        dt = time.perf_counter() - t0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        y = torch.from_numpy(rows).cuda()
+        ev[1].record()
+        torch.cuda.synchronize()
+        if it:
+            dec.append(dt * 1e3)
+            h2d.append(ev[0].elapsed_time(ev[1]))
+
+    def device_ms(fn, n=10) -> float:
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(n):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / n
+
+    ker = device_ms(lambda: mel_power(y, cfg, num_frames=cfg.total_frames, first_frame=0, exact=True))
+    full = device_ms(lambda: log_mel_batch(y, cfg))
+    times["mel stream ms"] = {"decode": float(np.mean(dec)), "transfer": float(np.mean(h2d)),
+                              "mel_power_ct": ker, "log_mel_batch": full}
+    rate = re.findall(r"\(([\d.]+) examples/s\)", out1 + out2)
+    times["train-vae examples/s"] = [float(r) for r in rate]
+    log(f"[times] mel stream a batch of {TRAIN_B} (files in the page cache): decode {np.mean(dec):.2f} ms (host "
+        f"clock, 8 threads, mean of 5 after 1), transfer {np.mean(h2d):.3f} ms (pageable, mean of 5); "
+        f"mel_power_ct {ker:.3f} ms, log_mel_batch {full:.3f} ms (kernel + epilogue; 10 back to back after 1); "
+        f"train-vae end to end "
+        f"{', '.join(rate)} examples/s (the two runs, decode and start-up included); {smi}")
+    return {"launches": {"mel_power_ct": launches["mel_power_ct"], "mel_power_ct_bf16": fast["mel_power_ct_bf16"]},
+            "times": times}
+
+
 def phase_study_times(rng) -> dict:
     """-> {kernel: times} of the split kernel, at the shapes of rows 1 and 2."""
     return {
@@ -1583,6 +1979,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:  # the project both phases share
         fit = phase_fit_path(args.seed, np.random.default_rng([args.seed, 6]), Path(tmp))
         evaluation = phase_eval_path(args.seed, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        training = phase_train_path(args.seed, Path(tmp))
     study_rng = np.random.default_rng([args.seed, 3])
     errors.update(phase_kernel_vs_plain(STUDY_CASES, study_rng))
     launches.update(phase_study_path())
@@ -1596,6 +1994,7 @@ def main() -> None:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "tile": t["tile"],
             **({"launches_fit_path": fit["launches"]} if name == "mel_power_ct" else {}),
+            **({"launches_train_path": training["launches"][name]} if name in training["launches"] else {}),
             "launches_eval_path": evaluation["launches"][name],
         })
     from anuraxla_torch.probes.common import card_line
@@ -1606,7 +2005,11 @@ def main() -> None:
         f"balanced {cps['balanced']:.1f}, fast {cps['fast']:.1f}; encode_paths (balanced): "
         + ", ".join(f"{k} {v:.1f}" for k, v in fit["chunks_per_s"].items())
         + f"; fleet scan {evaluation['times']['scan windows/s']:.1f} windows/s "
-        f"({evaluation['times']['scan realtime x']:.1f}x realtime)")
+        f"({evaluation['times']['scan realtime x']:.1f}x realtime); train step at B={TRAIN_B}: "
+        + ", ".join(f"{k.split()[2]} {v['examples/s']:.1f}" for k, v in training["times"].items()
+                    if k.startswith("train step")) + " examples/s (host-bound), "
+        + ", ".join(f"{k.split()[2]} {v['device examples/s']:.1f}" for k, v in training["times"].items()
+                    if k.startswith("train step")) + " (device)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ rounding of a dominant power value, as chip_smoke.py shows against f64 sums —
 and 2e-5 for the mean), launch counting
 by kernel and mode, the wrapper's refusals on a CUDA tensor, the sessions
 on the card against the same sessions on the CPU (``encode_paths`` through
-the pinned host slots too), and the radial and MAP fits on the card against
-the same fits on the CPU.
+the pinned host slots too), the radial and MAP fits on the card against
+the same fits on the CPU, and the conv VAE's train step on the card against
+the same steps on the CPU.
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. The
 card's machine has no JAX, so this file imports none and runs without the
@@ -551,3 +552,44 @@ def test_encode_paths_through_pinned_slots_on_card(card, tmp_path):
             want = [s.encode_array(rows[i : i + 2]) for i in range(0, 10, 2)]
         want = np.concatenate(want)
         assert np.array_equal(Z, want), kw
+
+
+@pytest.mark.parametrize("downsample", ["stride", "avgpool"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_steps_on_card_match_cpu(card, downsample, dtype):
+    """Three train steps of the conv VAE (``models.train``) on the card
+    against the same steps on the CPU, from the same params, batches and
+    noise, with the tolerances of tests/test_torch_train.py. f32: the step
+    holds TF32 off across the backward too (loss rtol 1e-5, every gradient
+    within 1e-4 of its tensor's max, all but 1 % of the parameters within
+    1e-5 + 1e-4|p|: Adam moves an element whose gradient sits at rounding
+    level by ~lr either way). A bf16 trunk: loss rtol 1e-2; each gradient
+    within 0.2 of its tensor's max, 6e-2 where it is not a bias (the
+    cancelling sums); all but 1 % of the parameters within lr/4."""
+    from anuraxla_torch.models.train import TrainConfig, create_train_state, make_train_step
+    from anuraxla_torch.models.vae import VAEConfig
+
+    cfg = VAEConfig(latent_dim=8, widths=(8, 16), dense_width=32, groups=4, input_hw=(48, 32),
+                    downsample=downsample, dtype=dtype)
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10, beta=0.25, kl_delay_steps=1,
+                     kl_warmup_steps=2)
+    rng = np.random.default_rng(13)
+    batches = [torch.from_numpy(rng.standard_normal((6, 48, 32, 1)).astype(np.float32)) for _ in range(3)]
+    eps = [torch.from_numpy(rng.standard_normal((6, 8)).astype(np.float32)) for _ in range(3)]
+    step = make_train_step(tc.beta, tc.kl_warmup_steps, tc.kl_delay_steps)
+    out = {}
+    for dev in ("cpu", card):
+        _, st = create_train_state(cfg, tc, device=dev)
+        losses = [float(step(st, b.to(dev), e.to(dev))[1]["loss"]) for b, e in zip(batches, eps)]
+        grads = {k: p.grad.cpu() for k, p in st.model.named_parameters()}
+        out[str(dev)] = losses, grads, {k: v.cpu() for k, v in st.model.state_dict().items()}
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+    bf16 = dtype == "bfloat16"
+    np.testing.assert_allclose(lg, lc, rtol=1e-2 if bf16 else 1e-5)
+    for k in gc:
+        tol = (0.2 if k.endswith("bias") else 6e-2) if bf16 else 1e-4
+        assert float((gg[k] - gc[k]).abs().max()) <= tol * float(gc[k].abs().max()), k
+    d = torch.cat([(pg[k] - pc[k]).abs().ravel() for k in pc])
+    scale = torch.cat([pc[k].abs().ravel() for k in pc])
+    limit = tc.learning_rate / 4 if bf16 else 1e-5 + 1e-4 * scale
+    assert float((d > limit).float().mean()) <= 0.01

@@ -87,5 +87,11 @@ def test_seeded_init_is_deterministic_and_loads():
     n = sum(p.numel() for p in model.parameters())
     _, jparams = init_encoder(JVAE(), seed=0)
     assert n == sum(int(np.prod(v.shape)) for v in jax.tree_util.tree_leaves(jparams))
-    with pytest.raises(NotImplementedError):
-        ConvVAEEncoder(VAEConfig(downsample="avgpool"))
+    # the avgpool family builds with the JAX package's parameter count
+    pooled = ConvVAEEncoder(VAEConfig(downsample="avgpool"))
+    pooled.load_state_dict(init_encoder_params(VAEConfig(downsample="avgpool"), torch.Generator().manual_seed(5)))
+    _, jpooled = init_encoder(JVAE(downsample="avgpool"), seed=0)
+    assert sum(p.numel() for p in pooled.parameters()) == sum(
+        int(np.prod(v.shape)) for v in jax.tree_util.tree_leaves(jpooled))
+    with pytest.raises(ValueError, match="downsample"):
+        ConvVAEEncoder(VAEConfig(downsample="maxpool"))

@@ -448,7 +448,8 @@ def test_dispatcher_lists_commands_and_resolves_aliases(monkeypatch, capsys):
     assert e.value.code == 0 and all(f"  {name}\n" in out for name in COMMANDS)
     assert set(ALIASES.values()) <= set(COMMANDS)
     new = {"benchmark-folder", "benchmark-folder-map", "calibrate-tau", "run-qout-grid", "scan-soundscape",
-           "encode-wav", "normalize", "snapshot-from-log", "spearman-analysis"}
+           "encode-wav", "normalize", "snapshot-from-log", "spearman-analysis",
+           "train-vae", "print-latents", "make-synth-data"}
     assert new | {"fit-radial", "fit-map", "evaluate-wav", "evaluate-wav-map", "bench"} == set(COMMANDS)
     for alias, cmd in (("10", "benchmark-folder"), ("10b", "benchmark-folder-map"), ("9200", "run-qout-grid"),
                        ("9100", "spearman-analysis"), ("9105", "snapshot-from-log"), ("00", "normalize")):
@@ -457,7 +458,7 @@ def test_dispatcher_lists_commands_and_resolves_aliases(monkeypatch, capsys):
             t_dispatch.main([alias, "--help"])
         assert e.value.code == 0 and f"anuraxla_torch {cmd}" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="unknown command"):
-        t_dispatch.main(["train-vae"])
+        t_dispatch.main(["ingest-encoder"])
     with pytest.raises(SystemExit) as e:
         t_dispatch.main([])
     assert e.value.code == 1
