@@ -17,9 +17,8 @@ Reference script        -> command
 9100_spearman_rk_analysis  spearman-analysis
 9105_make_config_snapshot  snapshot-from-log
 9200_run_qout_grid         run-qout-grid
-(extra)                    make-synth-data, scan-soundscape, calibrate-tau, bench
-
-The JAX package's ingest-encoder and ingest-decoder are not ported yet.
+(extra)                    make-synth-data, scan-soundscape, calibrate-tau, bench,
+                           ingest-encoder, ingest-decoder
 """
 
 COMMANDS = {
@@ -39,6 +38,8 @@ COMMANDS = {
     "scan-soundscape": "anuraxla_torch.cli.scan_soundscape",
     "calibrate-tau": "anuraxla_torch.cli.calibrate_tau",
     "make-synth-data": "anuraxla_torch.cli.make_synth_data",
+    "ingest-encoder": "anuraxla_torch.cli.ingest_encoder",
+    "ingest-decoder": "anuraxla_torch.cli.ingest_decoder",
     "bench": "anuraxla_torch.bench",
 }
 

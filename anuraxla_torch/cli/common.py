@@ -1,13 +1,14 @@
 """Shared CLI plumbing — the port of ``anuraxla/cli/common.py``: the mel,
 device and encoder flags, ``--serving-tier`` and the three knobs a tier
-bundles, and the project-root resolution of ``--config`` and ``--root``
-(relative paths resolve against the project root, not the working
+bundles, ``--quantize-serving`` (int8 encoder contractions,
+``models.quant``), and the project-root resolution of ``--config`` and
+``--root`` (relative paths resolve against the project root, not the working
 directory, as in the reference).
 
 The tier table names the port's backends (the reference's ``pallas`` is
-``cuda`` here, ``pallas-bf16`` is ``cuda-bf16``). ``--data-parallel`` and
-``--quantize-serving`` belong to later slices of the port (torch.distributed
-serving, int8) and are not flags here yet.
+``cuda`` here, ``pallas-bf16`` is ``cuda-bf16``). ``--data-parallel``
+belongs to a later slice of the port (torch.distributed serving) and is not
+a flag here yet.
 """
 
 from __future__ import annotations
@@ -86,6 +87,13 @@ def add_batch_args(p: argparse.ArgumentParser) -> None:
         "lossless for 16-bit source files)",
     )
     p.add_argument(
+        "--quantize-serving", action="store_true",
+        help="int8 encoder contractions (models.quant: int8 weights per output "
+        "channel, int8 activations per row, int32 sums on the card's integer "
+        "tensor cores); post-training-quantization latent tolerance, latent "
+        "caches fingerprinted separately (_q8). Not with a bfloat16 encoder",
+    )
+    p.add_argument(
         "--pre-padded-host", action="store_true",
         help="decode WAVs directly into the ct kernel's pre-padded row layout. "
         "Requires parity mode, --frontend-backend cuda, hop %% 128 == 0",
@@ -138,6 +146,7 @@ def session_kwargs(args) -> dict:
         "parity": not knobs["fast_frontend"],
         "backend": knobs["frontend_backend"],
         "transfer_int16": getattr(args, "transfer_int16", False),
+        "quantize": getattr(args, "quantize_serving", False),
         "encoder_dtype": knobs["encoder_dtype"],
         "pre_padded_host": getattr(args, "pre_padded_host", False),
     }

@@ -78,6 +78,7 @@ def subprocess_shared_args(args, cfg_path) -> list:
     for flag, on in (
         ("--fast-frontend", knobs["fast_frontend"]),
         ("--transfer-int16", args.transfer_int16),
+        ("--quantize-serving", args.quantize_serving),
         ("--pre-padded-host", args.pre_padded_host),
     ):
         if on:

@@ -142,8 +142,9 @@ def main(argv=None) -> None:
         kl_delay_steps=args.kl_delay, batch_size=args.batch_size, seed=args.seed,
     )
 
-    if args.transfer_int16 or args.pre_padded_host:
-        print("ℹ️ --transfer-int16/--pre-padded-host are serving-path flags; training ignores them")
+    if args.transfer_int16 or args.quantize_serving or args.pre_padded_host:
+        print("ℹ️ --transfer-int16/--quantize-serving/--pre-padded-host are serving-path flags; "
+              "training ignores them")
     # --serving-tier picks the frontend knobs here too: train on the features
     # you will serve (the tier's encoder dtype is a serving knob; training
     # precision stays --bf16)

@@ -9,7 +9,9 @@ buffers on a card, in the mel kernel's pre-padded layout when
 non-blocking copy; no host copy lies between decoder and link. The device
 computes the fused RMS scale over the valid slice, the log-mel frontend
 (``backend="cuda"`` / ``"cuda-bf16"``: a Hopper mel kernel;
-``parity=False``: the crop-first fast frontend), and the encoder's ``mu``.
+``parity=False``: the crop-first fast frontend), and the encoder's ``mu``
+(``quantize=True``: int8 conv / dense contractions, ``models.quant``, with
+weights quantized once at ``load`` and activation scales taken per row).
 Two batches are in flight: batch i−1's latents are fetched only after batch
 i is dispatched, while batch i+1 decodes. ``encode_array`` copies its rows
 into a slot (PCM16-converted with ``transfer_int16``).
@@ -42,6 +44,7 @@ import torch
 from anuraxla_torch import resolve_device
 from anuraxla_torch.constants import CACHE_DIR_NAME, MelConfig
 from anuraxla_torch.models.checkpoint import load_or_init_encoder
+from anuraxla_torch.models.quant import encoder_apply_quantized, quantize_encoder
 from anuraxla_torch.models.vae import ConvVAEEncoder, VAEConfig
 from anuraxla_torch.ops.frontend import (
     BACKENDS, arithmetic_backend, log_mel_batch, mel_to_encoder_input, rms_scale_batch,
@@ -130,6 +133,10 @@ class EncoderSession:
     encoder_cfg: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     # trunk compute dtype ("float32" | "bfloat16"); params and heads stay f32
     encoder_dtype: str = "float32"
+    # int8 encoder contractions (models.quant): weights quantized once at
+    # load, activation scales per ROW, so a row's latent (and the _q8 cache)
+    # never depends on its batch-mates; excludes encoder_dtype="bfloat16"
+    quantize: bool = False
     normalize_on_device: bool = False  # fuse RMS normalization into the mel op
     # decode into the mel kernel's pre-padded row layout (host cost nil, the
     # device skips the signal pad); needs parity, backend="cuda", hop % 128 == 0
@@ -148,6 +155,11 @@ class EncoderSession:
         self._dev = resolve_device(self.device)
         if self.encoder_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"encoder_dtype must be float32 or bfloat16, got {self.encoder_dtype!r}")
+        if self.encoder_dtype == "bfloat16" and self.quantize:
+            raise ValueError(
+                "encoder_dtype='bfloat16' and quantize=True are mutually "
+                "exclusive (int8 serving has its own compute path)"
+            )
         if params is None:
             params, self.encoder_cfg = load_or_init_encoder(
                 self.encoder_dir, Path(self.project_root), seed=self.init_seed, cfg=self.encoder_cfg)
@@ -161,6 +173,7 @@ class EncoderSession:
         enc.load_state_dict(params)
         self._enc = enc.eval().to(self._dev)
         self._enc_cfg = cfg
+        self._q = quantize_encoder(params, cfg, device=self._dev) if self.quantize else None
         self.latent_dim = cfg.latent_dim
         self._rings: Dict[torch.dtype, HostRing] = {}
         self._setup_layout()
@@ -274,6 +287,8 @@ class EncoderSession:
             audio, self.mel, parity=self.parity, backend=self.backend,
             rms_scale=scale, pre_padded=self._layout is not None,
         )
+        if self._q is not None:
+            return encoder_apply_quantized(self._q, self._enc_cfg, mel_to_encoder_input(mels))["mu"]
         return self._enc(mel_to_encoder_input(mels))["mu"]
 
     def _dispatch(self, audio: np.ndarray) -> torch.Tensor:
@@ -344,8 +359,9 @@ def session_fingerprint(session: EncoderSession) -> str:
     runs matmul math, and on the CPU its plain version, not the card's
     split), the encoder weights (digest of the ``state_dict`` in sorted key
     order), the architecture (hash of the config, its compute dtype
-    included), int16 transfer, device-side normalization and noise injection.
-    The backend is prefixed with :data:`FRAMEWORK_TAG`, so no key equals one of
+    included), int8 serving (``_q8``; ``_q8-cpuplain`` off the card, where
+    the contractions run their plain versions), int16 transfer, device-side
+    normalization and noise injection. The backend is prefixed with :data:`FRAMEWORK_TAG`, so no key equals one of
     the JAX package, whose ``matmul`` backends share their names with this
     one's while its latents differ in the last bits."""
     if session._fingerprint:
@@ -363,6 +379,7 @@ def session_fingerprint(session: EncoderSession) -> str:
         f"{mel_fingerprint(session.mel)}_p{int(session.parity)}"
         f"_{FRAMEWORK_TAG}-{arithmetic_backend(session.mel, session.backend, session._dev)}"
         f"_e{h.hexdigest()}_a{arch}"
+        + (("_q8" if session._dev.type == "cuda" else "_q8-cpuplain") if session.quantize else "")
         + ("_i16" if session.transfer_int16 else "")
         + ("_ndev" if session.normalize_on_device else "")
         + (f"_nz{session.add_noise_db:g}s{session.noise_seed}" if session.add_noise_db is not None else "")

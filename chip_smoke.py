@@ -82,7 +82,29 @@ failure exits non-zero):
    step enqueued behind a sleep kernel, the device's own time; examples/s of
    each) and of the mel stream a batch (decode, transfer, ``mel_power_ct``,
    epilogue);
-8. the kernel study, after every serving phase so that those run as they did
+8. int8 serving and checkpoint ingest at full width (``DEFAULT_MEL``, default
+   ``VAEConfig``): both kernels of ``csrc/int8_gemm.cu`` (``int8_conv``,
+   ``int8_dense``) held to their plain versions bit for bit at every int8
+   layer of the encoder (stride family with XLA SAME and TORCH pads, avgpool
+   family, the dense at K = 12288) at B = 1024, 1 and 63, and the library
+   route's limits (patches + ``torch._int_mm``) shown on the card; the main
+   path ``EncoderSession(quantize=True)`` in the parity tier,
+   ``encode_paths`` + ``detect_species`` on the six serving WAVs, counts set
+   to 0 just before and read just after (``mel_power_ct``, ``int8_conv``,
+   ``int8_dense`` must move), held to the same session on the CPU (row max
+   rel <= 0.1, cosine >= 0.997: the free-running bound of
+   tests/test_torch_quant.py), to the f32 session (cosine > 0.97, rel L2 <
+   0.25) and to the CPU's decisions; ``evaluate-wav --serving-tier parity
+   --quantize-serving`` exit codes, the balanced tier with int8 refused,
+   batch-mate independence (1e-5); ``ingest-encoder --verify`` on the card
+   for full-width torch checkpoints with Hydra YAML (stride + GroupNorm,
+   avgpool), ``ingest-decoder --verify`` on a pickled full-width decoder, the
+   artifacts served against their torch modules (rtol 5e-4 / atol 2e-5) and
+   the avgpool one int8 (cosine > 0.97); times at B = 1024 of each int8 layer
+   (kernel, plain, bound, the library route, f32 / bf16 cuDNN), the encoder a
+   batch (int8, f32, bf16 trunks) and ``encode_array`` (int8, parity,
+   balanced);
+9. the kernel study, after every serving phase so that those run as they did
    before it existed: hold the split-bf16 tensor-core kernel
    (``fused_dots=True``: a TMA ring, wgmma) to its plain version, exact and
    bf16, at ``DEFAULT_MEL`` pre-padded, at the fast tier's frame range, at hop
@@ -96,7 +118,7 @@ failure exits non-zero):
    each module of ``anuraxla_torch.probes`` and of ``anuraxla_torch.bench``
    (the split kernel's counts must move there); time the split kernel, with
    the L2 bytes of its table stream;
-9. print the kernels line (``mel_power_ct``'s also with its launches on the
+10. print the kernels line (``mel_power_ct``'s also with its launches on the
    fit path, it and ``mel_power_ct_bf16`` on the training path; every
    kernel's on the evaluation path), the card's name and power limit, and last the device line.
 
@@ -1926,6 +1948,487 @@ def phase_train_path(seed: int, root: Path) -> dict:
             "times": times}
 
 
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+QUANT = "anuraxla/models/quant.py"
+INT8_KERNELS = {
+    "int8_conv": ("anuraxla_torch/csrc/int8_gemm.cu",
+                  f"{QUANT}:204 (_int8_conv: lax.conv_general_dilated on int8, int32 sums; XLA, not Pallas)"),
+    "int8_dense": ("anuraxla_torch/csrc/int8_gemm.cu",
+                   f"{QUANT}:198 (_int8_dot: lax.dot_general on int8, int32 sums; XLA, not Pallas)"),
+}
+INT8_BATCHES = (TIMING_B, 1, 63)  # rows the kernels are held to their plain versions at
+INT8_TIMED_CONV = "EncoderBlock_0/Conv_1"  # the kernels line's int8_conv shape: the conv with the most bytes
+# free running, card vs CPU and port vs reference: the bound of
+# tests/test_torch_quant.py (FREE_REL, FREE_COS): the integer parts are
+# bitwise, but a last-bit difference in the f32 layers between them can flip
+# an activation code at a rounding tie, and a flip moves that row's later layers
+INT8_FREE_REL, INT8_FREE_COS = 0.1, 0.997
+INGEST_RTOL, INGEST_ATOL = 5e-4, 2e-5  # tests/test_quant.py:152, an ingested encoder against its torch module
+
+
+class FullWidthDecoder(torch.nn.Module):
+    """A reference-style decoder at the default VAEConfig's widths, pickled
+    whole for ``ingest-decoder --verify``: two linears, a view to [256, 12, 4],
+    four ConvTranspose2d(4, 2, 1) + GroupNorm + SiLU, a 3x3 output conv."""
+
+    def __init__(self):
+        super().__init__()
+        nn = torch.nn
+        self.fc1, self.fc2 = nn.Linear(128, 512), nn.Linear(512, 256 * 12 * 4)
+        chans = (256, 128, 64, 32, 16)
+        self.up = nn.ModuleList()
+        for a, b in zip(chans[:-1], chans[1:]):
+            self.up.extend([nn.ConvTranspose2d(a, b, 4, stride=2, padding=1), nn.GroupNorm(8, b)])
+        self.out = nn.Conv2d(16, 1, 3, padding=1)
+
+    def forward(self, z):
+        f = torch.nn.functional
+        x = f.silu(self.fc2(f.silu(self.fc1(z)))).view(-1, 256, 12, 4)
+        for i in range(0, len(self.up), 2):
+            x = f.silu(self.up[i + 1](self.up[i](x)))
+        return self.out(x)
+
+
+def int8_layers(cfg):
+    """(name, shape) of each int8 contraction of ``cfg``'s encoder: convs
+    (H, W, Cin, Cout, stride, pads), then the dense (K, N)."""
+    from anuraxla_torch.models.quant import _block_convs, _conv_pads
+    from anuraxla_torch.ops.int8 import conv_out_hw
+
+    (h, w), cin, out = cfg.input_hw, 1, []
+    for i, width in enumerate(cfg.widths):
+        for j, stride in _block_convs(cfg):
+            pads = _conv_pads(cfg, h, w, stride)
+            out.append((f"EncoderBlock_{i}/Conv_{j}", (h, w, cin, width, stride, pads)))
+            (h, w), cin = conv_out_hw(h, w, stride, pads), width
+        if cfg.downsample == "avgpool":
+            h, w = h // 2, w // 2
+    out.append(("Dense_0", (h * w * cin, cfg.dense_width)))
+    return out
+
+
+def int8_operands(shape, B: int, gen: torch.Generator):
+    """Random int8 codes, per-row scales, per-channel scales and biases on the card."""
+    dev = "cuda"
+    if len(shape) == 2:
+        (K, N), xs = shape, (B, shape[0])
+        w = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+    else:
+        H, W, cin, N = shape[:4]
+        xs = (B, H, W, cin)
+        w = torch.randint(-127, 128, (3, 3, cin, N), generator=gen, device=dev, dtype=torch.int8)
+    x = torch.randint(-127, 128, xs, generator=gen, device=dev, dtype=torch.int8)
+    sx = torch.rand(B, generator=gen, device=dev) * 0.05 + 1e-3
+    sw = torch.rand(N, generator=gen, device=dev) * 0.01 + 1e-4
+    return x, w, sx, sw, torch.randn(N, generator=gen, device=dev)
+
+
+def int8_call(shape, ops, plain: bool = False, raw: bool = False):
+    from anuraxla_torch.ops import int8 as i8
+
+    if len(shape) == 2:
+        return (i8.int8_dense_plain if plain else i8.int8_dense)(*ops, raw=raw)
+    return (i8.int8_conv_plain if plain else i8.int8_conv)(*ops, shape[4], shape[5], raw=raw)
+
+
+def int8_library(shape, ops):
+    """The library route (never called by the port): im2col patches, then
+    ``torch._int_mm``, then the same epilogue; -> (fn, None) or (None, why not)."""
+    from anuraxla_torch.ops.int8 import dequantize
+
+    _, w, sx, sw, bias = ops
+
+    def fn():
+        a = patches_of(shape, ops)
+        acc = torch._int_mm(a.reshape(-1, a.shape[-1]), w.reshape(a.shape[-1], -1))
+        return dequantize(acc, sx, sw, bias).reshape(*a.shape[:-1], -1)  # the kernel's output shape
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:160]
+    return fn, None
+
+
+def patches_of(shape, ops):
+    from anuraxla_torch.ops.int8 import patches
+
+    return ops[0] if len(shape) == 2 else patches(ops[0], shape[4], shape[5])
+
+
+def exact_n(shape, B: int) -> int:
+    """Outputs of the contraction at B rows."""
+    from anuraxla_torch.ops.int8 import conv_out_hw
+
+    if len(shape) == 2:
+        return B * shape[1]
+    ho, wo = conv_out_hw(*shape[:2], shape[4], shape[5])
+    return B * ho * wo * shape[3]
+
+
+def int8_work(shape, B: int) -> tuple:
+    """(int8 operations, bytes) the function needs: each input read once
+    (codes, weights, scales, biases), the f32 output written once."""
+    if len(shape) == 2:
+        (K, N), M = shape, B
+        x_bytes = B * K
+    else:
+        from anuraxla_torch.ops.int8 import conv_out_hw
+
+        H, W, cin, N, stride, pads = shape
+        ho, wo = conv_out_hw(H, W, stride, pads)
+        M, K, x_bytes = B * ho * wo, 9 * cin, B * H * W * cin
+    return 2.0 * M * K * N, x_bytes + K * N + 4 * B + 8 * N + 4 * M * N
+
+
+def phase_int8_path(seed: int, root: Path) -> dict:
+    """Int8 serving and checkpoint ingest at full width (``DEFAULT_MEL``,
+    default ``VAEConfig``): both kernels of ``csrc/int8_gemm.cu`` held to
+    their plain versions bit for bit at every int8 layer of the encoder
+    (stride family with XLA SAME and with TORCH pads, avgpool family, the dense
+    at K = 12288) at B = 1024, 1 and 63; the main path — ``EncoderSession(
+    quantize=True)`` in the parity tier, ``encode_paths`` + ``detect_species``
+    on the six serving WAVs, launch counts set to 0 just before and read just
+    after (``mel_power_ct``, ``int8_conv`` and ``int8_dense`` must move) —
+    against the same session on the CPU (the free-running bound), the f32
+    session (cosine > 0.97, relative L2 < 0.25) and the CPU's decisions;
+    ``evaluate-wav --serving-tier parity --quantize-serving`` exit codes; the
+    balanced tier with int8 refused; batch-mate independence on the card.
+    Ingest: full-width torch checkpoints with Hydra YAML (stride + GroupNorm,
+    avgpool without norm) through ``ingest-encoder --verify`` on the card,
+    a pickled decoder through ``ingest-decoder --verify``; each artifact
+    served (``EncoderSession`` against the torch module on the same mel,
+    rtol 5e-4 / atol 2e-5; the decoder through ``load_decoder``), the
+    avgpool one also int8 (cosine > 0.97). Times at B = 1024: each int8 layer
+    (kernel, plain version, bound, the library route and the f32 / bf16
+    cuDNN conv of the layer), the encoder a batch (int8, f32 and bf16
+    trunks), ``encode_array`` chunks/s (int8, parity, balanced).
+    -> {"errors", "launches", "times"}."""
+    import argparse as ap
+    import dataclasses as dc
+
+    import yaml
+
+    from anuraxla_torch.cli import evaluate_wav, ingest_decoder, ingest_encoder
+    from anuraxla_torch.cli.common import session_kwargs
+    from anuraxla_torch.cli.evaluate_wav import detect_species
+    from anuraxla_torch.constants import DEFAULT_MEL as mel
+    from anuraxla_torch.models import hydra_ingest as hi
+    from anuraxla_torch.models.checkpoint import load_decoder
+    from anuraxla_torch.models.quant import encoder_apply_quantized, quantize_encoder
+    from anuraxla_torch.models.vae import ConvVAEEncoder, IngestedDecoder, VAEConfig, init_encoder_params
+    from anuraxla_torch.ops import int8 as i8
+    from anuraxla_torch.ops.frontend import log_mel_batch
+    from anuraxla_torch.ops.mel_kernel import mel_power, reset_launches
+    from anuraxla_torch.pipeline.session import EncoderSession, session_fingerprint
+    from anuraxla_torch.probes.common import card_line, cuda_ms
+    from anuraxla_torch.utils.precision import exact_f32
+    from anuraxla_torch.utils.wavio import read_wav
+
+    smi = card_line()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    vcfg = VAEConfig()
+
+    # 1. each kernel against its plain version, bitwise
+    cases = [("SAME", name, shape) for name, shape in int8_layers(vcfg)]
+    same = dict(int8_layers(vcfg))
+    cases += [("TORCH", n, s) for n, s in int8_layers(dc.replace(vcfg, conv_padding="TORCH")) if s != same[n]]
+    cases += [("avgpool", n, s) for n, s in int8_layers(dc.replace(vcfg, downsample="avgpool"))]
+    n_checked = 0
+    for family, name, shape in cases:
+        for B in INT8_BATCHES:
+            ops = int8_operands(shape, B, gen)
+            for raw in (False, True) if B == 63 else (False,):
+                got = int8_call(shape, ops, raw=raw)
+                ref = int8_call(shape, ops, plain=True, raw=raw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    d = (got.double() - ref.double()).abs().max().item()
+                    raise AssertionError(f"int8 {family} {name} {shape} B={B} raw={raw}: kernel != plain (max {d})")
+                n_checked += 1
+            del ops, got, ref
+    log(f"[int8-path] int8_conv / int8_dense equal their plain versions bit for bit in {n_checked} cases: "
+        f"{len(cases)} layer shapes (stride SAME, TORCH pads where they differ, avgpool; the dense at K = "
+        f"{cases[-1][2][0]}) x B in {INT8_BATCHES}, the raw int32 sums too at B = 63 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    errors = {"int8_conv": 0.0, "int8_dense": 0.0}
+
+    # the library route's limits, on the card
+    for what, shape, B in (("first conv (K = 9)", cases[0][2], TIMING_B), ("a batch of one", cases[1][2], 1),
+                           ("16 rows", cases[1][2], 16)):
+        _, why = int8_library(shape, int8_operands(shape, B, gen))
+        log(f"[int8-path] library route (patches + torch._int_mm) on {what}: {'refused: ' + why if why else 'runs'}")
+
+    # 2. the main path: int8 serving in the parity tier
+    params = init_encoder_params(vcfg, torch.Generator().manual_seed(seed))
+    knobs = session_kwargs(ap.Namespace(serving_tier="parity", batch_size=4, io_threads=8, quantize_serving=True))
+    assert knobs["quantize"] and knobs["encoder_dtype"] == "float32"
+    kw = dict(mel=mel, normalize_on_device=True, **knobs)
+    d = root / "serve"
+    d.mkdir()
+    paths = write_inputs(d, mel, np.random.default_rng([seed, 8]))
+    cfg_path = d / "config.json"
+    cpu = EncoderSession(**kw, device="cpu").load(params)
+    Zc, okc, _ = cpu.encode_paths(paths)
+    write_config(cfg_path, Zc)
+    decc = [detect_species(p, cpu, cfg_path)[:2] for p in paths]
+    sess = EncoderSession(**kw, device="cuda").load(params)
+    f32 = EncoderSession(**dict(kw, quantize=False), device="cuda").load(params)
+    reset_launches()
+    i8.reset_launches()  # count only the main path from here
+    Z, ok, err = sess.encode_paths(paths)
+    dec = [detect_species(p, sess, cfg_path)[:2] for p in paths]
+    torch.cuda.synchronize()
+    launches = {"mel_power_ct": mel_power.launches["mel_power_ct"], **i8.launches()}
+    log(f"[main-path int8 parity DEFAULT_MEL] encode_paths + detect_species, {len(paths)} WAVs: launches "
+        f"{launches} (all mel counters {dict(mel_power.launches)}); key {session_fingerprint(sess)}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"int8 main path: a kernel did not launch: {launches}")
+    if not (ok.all() and okc.all()) or Z.shape != (len(paths), 128) or not np.isfinite(Z).all():
+        raise AssertionError(f"int8 main path: decode failures or bad latents: {err}")
+    cos = live_cosine(Z, Zc, "int8 card vs CPU")
+    live = np.linalg.norm(Zc, axis=1) > 0
+    rel = np.abs(Z - Zc).max(1)[live] / np.abs(Zc).max(1)[live]
+    log(f"[main-path int8] latents vs the same session on the CPU: row rel max {rel.max():.3e} (<= "
+        f"{INT8_FREE_REL}), cosine min {cos.min():.6f} (>= {INT8_FREE_COS})")
+    if not (rel.max() <= INT8_FREE_REL and cos.min() >= INT8_FREE_COS):
+        raise AssertionError("int8 latents on the card drifted from the CPU's")
+    Zf, _, _ = f32.encode_paths(paths)
+    cos = live_cosine(Z, Zf, "int8 vs f32 on the card")
+    l2 = np.linalg.norm(Z - Zf, axis=1)[live] / np.linalg.norm(Zf, axis=1)[live]
+    log(f"[main-path int8] int8 vs f32 encoder on the card: cosine min {cos.min():.6f} (> 0.97), rel L2 max "
+        f"{l2.max():.4f} (< 0.25)")
+    if not (cos.min() > 0.97 and l2.max() < 0.25):
+        raise AssertionError("int8 latents drifted from the f32 encoder's past the quantization gates")
+    if dec != decc or not dec[0][0]:
+        raise AssertionError(f"int8 decisions: card {dec} vs cpu {decc} (chunk 0 sits on a centroid)")
+    log(f"[main-path int8] decisions identical to the CPU's: {dec}")
+
+    # the CLI: exit codes of evaluate-wav against a session built as the CLI builds it
+    cli_kw = session_kwargs(evaluate_wav.build_parser().parse_args(
+        ["--wav", "x", "--serving-tier", "parity", "--quantize-serving"]))
+    cli_sess = EncoderSession(mel=mel, device="cuda", init_seed=seed, **cli_kw).load()
+    cli_cfg = write_config(d / "cli.json", cli_sess.encode_paths(paths)[0])
+    want = [0 if detect_species(p, cli_sess, cli_cfg)[0] else 2 for p in paths]
+    codes = []
+    for p in paths:
+        with contextlib.redirect_stdout(io.StringIO()):
+            try:
+                evaluate_wav.main(["--wav", str(p), "--config", str(cli_cfg), "--serving-tier", "parity",
+                                   "--quantize-serving", "--init-seed", str(seed)])
+            except SystemExit as e:
+                codes.append(e.code)
+    if codes != want or want[0] != 0:
+        raise AssertionError(f"evaluate-wav --quantize-serving exit codes {codes}, want {want}")
+    try:
+        evaluate_wav.main(["--wav", str(paths[0]), "--config", str(cli_cfg), "--serving-tier", "balanced",
+                           "--quantize-serving", "--init-seed", str(seed)])
+        raise AssertionError("evaluate-wav --serving-tier balanced --quantize-serving was not refused")
+    except ValueError as e:
+        refused = str(e)
+    log(f"[int8-path] evaluate-wav --serving-tier parity --quantize-serving exit codes {codes} (= the session's "
+        f"decisions); --serving-tier balanced --quantize-serving refused: {refused}")
+
+    # batch-mate independence: a row alone and beside loud rows (tests/test_quant.py:62)
+    q = sess._q
+    x = torch.randn(4, *vcfg.input_hw, 1, generator=gen, device="cuda")
+    with torch.inference_mode():
+        alone = encoder_apply_quantized(q, vcfg, x[:1])["mu"]
+        mixed = encoder_apply_quantized(q, vcfg, torch.cat([x[:1], 50.0 * x[1:]]))["mu"]
+    diff = (alone[0] - mixed[0]).abs().max().item()
+    log(f"[int8-path] batch-mate independence on the card: max|alone - mixed| = {diff:.3e} (<= 1e-5)")
+    if not diff <= 1e-5:
+        raise AssertionError("int8 latents depend on their batch-mates on the card")
+
+    # 3. ingest at full width
+    layers = []
+    chans = (1, 32, 64, 128, 256)
+    for a, b in zip(chans[:-1], chans[1:]):
+        layers += [{"_target_": "torch.nn.Conv2d", "_args_": [a, b, 3], "stride": 2, "padding": 1},
+                   {"_target_": "torch.nn.GroupNorm", "_args_": [8, b]}, {"_target_": "torch.nn.SiLU"},
+                   {"_target_": "torch.nn.Conv2d", "_args_": [b, b, 3], "padding": 1},
+                   {"_target_": "torch.nn.GroupNorm", "_args_": [8, b]}, {"_target_": "torch.nn.SiLU"}]
+    pool = []
+    for a, b in zip(chans[:-1], chans[1:]):
+        pool += [{"_target_": "torch.nn.Conv2d", "_args_": [a, b, 3], "padding": 1}, {"_target_": "torch.nn.SiLU"},
+                 {"_target_": "torch.nn.AvgPool2d", "_args_": [2]}]
+    head = [{"_target_": "torch.nn.Flatten"}, {"_target_": "torch.nn.Linear", "_args_": [12 * 4 * 256, 512]},
+            {"_target_": "torch.nn.SiLU"}, {"_target_": "torch.nn.Linear", "_args_": [512, 128]}]
+    rows = np.stack([read_wav(p)[0] for p in paths])
+    served = {}
+    for family, body in (("stride", layers), ("avgpool", pool)):
+        tree = {"encoder": {"_target_": "torch.nn.Sequential", "_args_": body + head}}
+        yml, pt, art = d / f"{family}.yaml", d / f"{family}.pt", d / f"{family}_artifact"
+        yml.write_text(yaml.safe_dump(tree))
+        torch.manual_seed(seed + 1)
+        module = hi.build_nn_module(hi.instantiate_target_tree(tree["encoder"])).eval()
+        torch.save({"state_dict": module.state_dict()}, pt)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            ingest_encoder.main(["--pt", str(pt), "--yaml", str(yml), "--out", str(art), "--verify"])
+        text = out.getvalue()
+        if "✅ verified vs torch module" not in text:
+            raise AssertionError(f"ingest-encoder --verify {family}: {text}")
+        line = next(ln for ln in text.splitlines() if ln.startswith("✅"))
+        # the artifact records the input the ingest found (the smallest target_frames
+        # the dense layer admits); the tools serve it at that mel config
+        frames = json.loads((art / "encoder.json").read_text())["input_hw"][0]
+        s = EncoderSession(mel=mel.replace(target_frames=frames), encoder_dir=art, device="cuda", batch_size=8).load()
+        z = s.encode_array(rows)
+        with torch.inference_mode():
+            m = log_mel_batch(torch.from_numpy(rows).cuda(), s.mel)
+        with torch.no_grad():
+            ref = module(m[:, None].cpu()).numpy()
+        np.testing.assert_allclose(z, ref, rtol=INGEST_RTOL, atol=INGEST_ATOL)
+        served[family] = s
+        log(f"[ingest] {family}: ingest-encoder --verify on the card {line.split(':', 1)[1].strip()}; "
+            f"{s._enc_cfg.downsample} norm={s._enc_cfg.norm} input {s._enc_cfg.input_hw}; served by EncoderSession: "
+            f"max|z - torch module| = {np.abs(z - ref).max():.3e} (rtol {INGEST_RTOL}, atol {INGEST_ATOL})")
+    s = served["avgpool"]
+    sq = EncoderSession(mel=s.mel, encoder_dir=d / "avgpool_artifact", device="cuda", batch_size=8,
+                        quantize=True).load()
+    zf, zq = s.encode_array(rows), sq.encode_array(rows)
+    cos = live_cosine(zq, zf, "ingested avgpool int8 vs f32")
+    l2 = np.linalg.norm(zq - zf, axis=1) / np.maximum(np.linalg.norm(zf, axis=1), 1e-30)
+    log(f"[ingest] the ingested avgpool encoder served int8: cosine min {cos.min():.6f} (> 0.97), rel L2 max "
+        f"{l2[np.linalg.norm(zf, axis=1) > 0].max():.4f} (< 0.25)")
+    if not (cos.min() > 0.97 and l2[np.linalg.norm(zf, axis=1) > 0].max() < 0.25):
+        raise AssertionError("the ingested avgpool encoder drifted past the int8 gates")
+    torch.manual_seed(seed + 2)
+    dec_mod = FullWidthDecoder().eval()
+    pt, art = d / "decoder.pt", d / "decoder_artifact"
+    torch.save(dec_mod, pt)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ingest_decoder.main(["--pt", str(pt), "--out", str(art), "--verify"])
+    if "✅ verified vs torch module" not in out.getvalue():
+        raise AssertionError(f"ingest-decoder --verify: {out.getvalue()}")
+    state, spec = load_decoder(art)
+    dec = IngestedDecoder(spec)
+    dec.load_state_dict(state)
+    zl = torch.randn(4, 128, generator=torch.Generator().manual_seed(seed))
+    with torch.inference_mode():
+        got = dec.cuda()(zl.cuda()).cpu().numpy()
+        want_r = dec_mod(zl).numpy()
+    derr = np.abs(np.moveaxis(got, -1, 1) - want_r).max()
+    log(f"[ingest] decoder: ingest-decoder --verify on the card; spec stack {list(spec.stack)}, out {spec.out_hw}; "
+        f"the artifact on the card vs the pickled module: max|diff| = {derr:.3e} (<= 1e-4)")
+    if not derr <= 1e-4:
+        raise AssertionError("the ingested decoder does not reproduce its module")
+    del served, s, sq, dec
+
+    # 4. times at B = 1024: each int8 layer, the encoder a batch, encode_array
+    times = {}
+    B = TIMING_B
+    for name, shape in int8_layers(vcfg):
+        ops = int8_operands(shape, B, gen)
+        flops, nbytes = int8_work(shape, B)
+        t_ops, t_bytes = flops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        t = {"ms": cuda_ms(lambda: int8_call(shape, ops), iters=10),
+             "plain_ms": cuda_ms(lambda: int8_call(shape, ops, plain=True), iters=2, warmup=1),
+             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "gops": flops / 1e9, "gb": nbytes / 1e9}
+        lib, why = int8_library(shape, ops)
+        t["route_ms"] = cuda_ms(lib, iters=5) if lib else None
+        if lib is not None:  # a yardstick, not a gate: how far the library's sums are from exact
+            a = patches_of(shape, ops)
+            acc = torch._int_mm(a.reshape(-1, a.shape[-1]), ops[1].reshape(a.shape[-1], -1))
+            exact = int8_call(shape, ops, raw=True).reshape(acc.shape)
+            t["route_int32_wrong"] = int((acc != exact).sum())
+            t["route_int32_max_diff"] = int((acc.long() - exact.long()).abs().max())
+            t["route_f32_wrong"] = int((lib() != int8_call(shape, ops)).sum())
+            del a, acc, exact
+        xf = ops[0].float()
+        with exact_f32():
+            if len(shape) == 2:
+                wf = ops[1].float()
+                t["f32_ms"] = cuda_ms(lambda: xf @ wf, iters=5)
+                xb, wb = xf.bfloat16(), wf.bfloat16()
+                t["bf16_ms"] = cuda_ms(lambda: xb @ wb, iters=5)
+                t["library_ms"] = cuda_ms(lambda: torch._int_mm(ops[0], ops[1]), iters=5)
+            else:
+                (pt_, pb), (pl, pr) = shape[5]
+                xf = torch.nn.functional.pad(xf.permute(0, 3, 1, 2), (pl, pr, pt_, pb)).contiguous(
+                    memory_format=torch.channels_last)
+                wf = ops[1].float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                conv = lambda a, b: torch.nn.functional.conv2d(a, b, stride=shape[4])  # noqa: E731
+                t["f32_ms"] = cuda_ms(lambda: conv(xf, wf), iters=5)
+                xb, wb = xf.bfloat16(), wf.bfloat16()
+                t["bf16_ms"] = cuda_ms(lambda: conv(xb, wb), iters=5)
+                t["library_ms"] = None  # no one PyTorch call computes an int8 conv on the card
+        times[name] = t
+        route = (f"{t['route_ms']:.3f} ms, its int32 sums off the exact ones at {t['route_int32_wrong']} of "
+                 f"{exact_n(shape, B)} outputs (max {t['route_int32_max_diff']}), its f32 output off the kernel's at "
+                 f"{t['route_f32_wrong']}" if t["route_ms"] is not None
+                 else f"refused ({why})")
+        log(f"[times] int8 {name} {shape} B={B}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['gops']:.2f} G int8 ops -> {t_ops:.4f} ms at 1979 TOP/s, "
+            f"{t['gb']:.4f} GB -> {t_bytes:.4f} ms) = {100 * t['bound_ms'] / t['ms']:.2f}% of bound; library route "
+            f"(patches + torch._int_mm + epilogue) {route}"
+            + (f", torch._int_mm alone {t['library_ms']:.3f} ms" if t["library_ms"] is not None else "")
+            + f"; cuDNN / cuBLAS f32 {t['f32_ms']:.3f} ms, bf16 "
+            f"{t['bf16_ms']:.3f} ms (NHWC, TF32 off); {smi}")
+        del ops, xf, xb, wf, wb
+    convs = [v for k, v in times.items() if k != "Dense_0"]
+    log(f"[times] int8 layers summed, B={B}: 8 convs {sum(v['ms'] for v in convs):.3f} ms (bound "
+        f"{sum(v['bound_ms'] for v in convs):.4f}), dense {times['Dense_0']['ms']:.3f} ms; f32 convs "
+        f"{sum(v['f32_ms'] for v in convs):.3f}, bf16 convs {sum(v['bf16_ms'] for v in convs):.3f} ms; {smi}")
+
+    x = torch.randn(B, *vcfg.input_hw, 1, generator=gen, device="cuda")
+    enc = {dt: ConvVAEEncoder(dc.replace(vcfg, dtype=dt)) for dt in ("float32", "bfloat16")}
+    for e in enc.values():
+        e.load_state_dict(params)
+        e.eval().cuda()
+    q = quantize_encoder(params, vcfg, device="cuda")
+    with torch.inference_mode():
+        enc_ms = {"int8": cuda_ms(lambda: encoder_apply_quantized(q, vcfg, x), iters=5),
+                  **{dt: cuda_ms(lambda e=e: e(x), iters=5) for dt, e in enc.items()}}
+    times["encoder ms"] = enc_ms
+    log(f"[times] encoder a batch of {B} ([192, 64] mels -> 128): int8 {enc_ms['int8']:.3f} ms, f32 trunk "
+        f"{enc_ms['float32']:.3f} ms, bf16 trunk {enc_ms['bfloat16']:.3f} ms; {smi}")
+    # where the int8 encoder's time goes: the device time of one forward by kernel
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with torch.inference_mode(), tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        encoder_apply_quantized(q, vcfg, x)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    rows_ = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), key=lambda r: -r[1])
+    total = sum(r[1] for r in rows_)
+    times["int8 encoder profile ms"] = {"device total": total, "int8 kernels": sum(
+        r[1] for r in rows_ if "int8_gemm" in r[0])}
+    log(f"[times] int8 encoder profile (torch.profiler, one forward, B={B}): device time {total:.3f} ms, of it "
+        f"int8_gemm {times['int8 encoder profile ms']['int8 kernels']:.3f} ms; top kernels: " + "; ".join(
+            f"{k[:70]} {ms:.3f} ms x{n}" for k, ms, n in rows_[:12]))
+    del x, enc, q
+
+    y = pre_pad(mel, test_rows(mel, B, np.random.default_rng([seed, 9])))
+    cps = {}
+    for label, extra in (("int8", dict(quantize=True)), ("parity", {}), ("balanced", dict(encoder_dtype="bfloat16"))):
+        s = EncoderSession(mel=mel, batch_size=B, normalize_on_device=True, pre_padded_host=True, **extra).load(params)
+        for _ in range(2):
+            s.encode_array(y)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            Zt = s.encode_array(y)
+        dt = (time.perf_counter() - t1) / 3
+        if Zt.shape != (B, 128) or not np.isfinite(Zt).all():
+            raise AssertionError(f"encode_array {label}: bad latents")
+        cps[label] = B / dt
+        del s
+    times["chunks_per_s"] = cps
+    log(f"[times] encode_array B={B} (pre-padded rows, host->device included): " +
+        ", ".join(f"{k} {v:.1f}" for k, v in cps.items()) + f" chunks/s; {smi}")
+    torch.cuda.empty_cache()
+    log(f"[int8-path] passed in {time.perf_counter() - t0:.1f} s")
+    return {"errors": errors, "launches": launches, "times": times}
+
+
 def phase_study_times(rng) -> dict:
     """-> {kernel: times} of the split kernel, at the shapes of rows 1 and 2."""
     return {
@@ -1952,7 +2455,7 @@ def main() -> None:
         sys.exit(1)
     # the port and its kernel sources must sit beside this script
     here = Path(__file__).resolve().parent
-    missing = [src for src, _ in KERNELS.values() if not (here / src).is_file()]
+    missing = [src for src, _ in (*KERNELS.values(), *INT8_KERNELS.values()) if not (here / src).is_file()]
     if missing:
         print(f"chip_smoke: no anuraxla_torch checkout beside {here} (missing {missing[0]})", file=sys.stderr)
         sys.exit(1)
@@ -1981,6 +2484,8 @@ def main() -> None:
         evaluation = phase_eval_path(args.seed, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         training = phase_train_path(args.seed, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        int8 = phase_int8_path(args.seed, Path(tmp))
     study_rng = np.random.default_rng([args.seed, 3])
     errors.update(phase_kernel_vs_plain(STUDY_CASES, study_rng))
     launches.update(phase_study_path())
@@ -1997,6 +2502,15 @@ def main() -> None:
             **({"launches_train_path": training["launches"][name]} if name in training["launches"] else {}),
             "launches_eval_path": evaluation["launches"][name],
         })
+    for name, (source, replaces) in INT8_KERNELS.items():
+        layer = INT8_TIMED_CONV if name == "int8_conv" else "Dense_0"
+        t = int8["times"][layer]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "config": f"default VAEConfig {layer} B={TIMING_B}", "launches": int8["launches"][name],
+            "max_abs_err": int8["errors"][name], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
     from anuraxla_torch.probes.common import card_line
 
     smi = card_line()
@@ -2009,7 +2523,11 @@ def main() -> None:
         + ", ".join(f"{k.split()[2]} {v['examples/s']:.1f}" for k, v in training["times"].items()
                     if k.startswith("train step")) + " examples/s (host-bound), "
         + ", ".join(f"{k.split()[2]} {v['device examples/s']:.1f}" for k, v in training["times"].items()
-                    if k.startswith("train step")) + " (device)")
+                    if k.startswith("train step")) + " (device); int8 encoder "
+        + f"{int8['times']['encoder ms']['int8']:.3f} ms a batch of {TIMING_B} (f32 "
+        + f"{int8['times']['encoder ms']['float32']:.3f}, bf16 {int8['times']['encoder ms']['bfloat16']:.3f}), "
+        + "encode_array " + ", ".join(f"{k} {v:.1f}" for k, v in int8["times"]["chunks_per_s"].items())
+        + " chunks/s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -593,3 +593,105 @@ def test_train_steps_on_card_match_cpu(card, downsample, dtype):
     scale = torch.cat([pc[k].abs().ravel() for k in pc])
     limit = tc.learning_rate / 4 if bf16 else 1e-5 + 1e-4 * scale
     assert float((d > limit).float().mean()) <= 0.01
+
+
+# the int8 serving path: csrc/int8_gemm.cu against its plain version, bitwise
+INT8_CONVS = [
+    # B, H, W, Cin, Cout, stride, pads: the default encoder's first conv (K = 9)
+    # at B = 1 and an odd B, a stride-1 conv of block 0, TORCH pads, a ragged
+    # Cout and Cin (byte gathers), and the last block's conv (K = 2304)
+    (1, 192, 64, 1, 32, 2, ((0, 1), (0, 1))),
+    (63, 192, 64, 1, 32, 2, ((0, 1), (0, 1))),
+    (3, 96, 32, 32, 32, 1, ((1, 1), (1, 1))),
+    (2, 48, 16, 64, 128, 2, ((1, 1), (1, 1))),
+    (5, 7, 9, 3, 12, 2, ((0, 1), (1, 1))),
+    (7, 12, 4, 256, 256, 1, ((1, 1), (1, 1))),
+]
+
+
+def _int8_operands(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    B, H, W, cin, cout = shape[:5]
+    x = torch.randint(-127, 128, (B, H, W, cin), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (3, 3, cin, cout), generator=g, dtype=torch.int8)
+    return x, w, torch.rand(B, generator=g) * 0.05, torch.rand(cout, generator=g) * 0.01, torch.randn(cout, generator=g)
+
+
+@pytest.mark.parametrize("shape", INT8_CONVS, ids=lambda s: "x".join(map(str, s[:5])) + f"s{s[5]}")
+def test_int8_conv_kernel_matches_plain(card, shape):
+    from anuraxla_torch.ops import int8 as ti8
+
+    x, w, sx, sw, bias = _int8_operands(shape, sum(shape[:5]))
+    stride, pads = shape[5], shape[6]
+    ref = ti8.int8_conv_plain(x, w, sx, sw, bias, stride, pads)
+    raw_ref = ti8.int8_conv_plain(x, w, sx, sw, bias, stride, pads, raw=True)
+    n0 = ti8.launches()
+    dev = [t.to(card) for t in (x, w, sx, sw, bias)]
+    got = ti8.int8_conv(*dev, stride, pads)
+    raw = ti8.int8_conv(*dev, stride, pads, raw=True)
+    one = ti8.int8_conv(*dev[:2], dev[2][:1], *dev[3:], stride, pads)  # one scale for every row
+    torch.cuda.synchronize()
+    assert ti8.launches() == dict(n0, int8_conv=n0["int8_conv"] + 3)
+    assert torch.equal(got.cpu(), ref) and torch.equal(raw.cpu(), raw_ref)
+    assert torch.equal(one.cpu(), ti8.int8_conv_plain(x, w, sx[:1], sw, bias, stride, pads))
+
+
+@pytest.mark.parametrize("mkn", [(1, 12288, 512), (63, 12288, 512), (1024, 12288, 512), (17, 9, 5), (33, 100, 40)])
+def test_int8_dense_kernel_matches_plain(card, mkn):
+    from anuraxla_torch.ops import int8 as ti8
+
+    M, K, N = mkn
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    sx, sw, bias = torch.rand(M, 1, generator=g), torch.rand(N, generator=g) * 0.01, torch.randn(N, generator=g)
+    n0 = ti8.launches()["int8_dense"]
+    got = ti8.int8_dense(*(t.to(card) for t in (x, w, sx, sw, bias)))
+    torch.cuda.synchronize()
+    assert ti8.launches()["int8_dense"] == n0 + 1
+    assert torch.equal(got.cpu(), ti8.int8_dense_plain(x, w, sx, sw, bias))
+
+
+def test_int8_wrappers_refuse_on_cuda(card):
+    from anuraxla_torch.ops import int8 as ti8
+
+    x, w, sx, sw, bias = (t.to(card) for t in _int8_operands(INT8_CONVS[4], 1))
+    with pytest.raises(ValueError, match="int8"):
+        ti8.int8_conv(x.float(), w, sx, sw, bias, 2, ((0, 1), (1, 1)))
+    with pytest.raises(ValueError, match="stride"):
+        ti8.int8_conv(x, w, sx, sw, bias, 3, ((0, 1), (1, 1)))
+    with pytest.raises(ValueError, match="sw and bias"):
+        ti8.int8_conv(x, w, sx, sw[:-1], bias, 2, ((0, 1), (1, 1)))
+    with pytest.raises(ValueError, match="sx"):
+        ti8.int8_conv(x, w, sx[:2], sw, bias, 2, ((0, 1), (1, 1)))
+    with pytest.raises(ValueError, match="is on"):
+        ti8.int8_conv(x, w.cpu(), sx, sw, bias, 2, ((0, 1), (1, 1)))
+
+
+def test_quantized_session_on_card_matches_cpu(card):
+    """quantize=True at DEFAULT_MEL, default VAEConfig, parity tier: the card's
+    latents against the same session on the CPU within the free-running bound
+    of tests/test_torch_quant.py (the integer parts are bitwise; GroupNorm's f32
+    sums differ in their last bits and can flip a code), a row alone equal
+    to the same row beside loud batch-mates (atol 1e-5), and the kernels'
+    counters move."""
+    from anuraxla_torch.ops import int8 as ti8
+
+    y = _rows(DEFAULT_MEL, 5, seed=21)
+    z = {}
+    for dev in ("cpu", card):
+        s = EncoderSession(mel=DEFAULT_MEL, device=dev, batch_size=8, init_seed=3, quantize=True).load()
+        n0 = ti8.launches()
+        z[str(dev)] = s.encode_array(y)
+    assert ti8.launches()["int8_conv"] == n0["int8_conv"] + 8 and ti8.launches()["int8_dense"] == n0["int8_dense"] + 1
+    zc, zg = z["cpu"], z["cuda"]
+    live = np.linalg.norm(zc, axis=-1) > 0  # a row that standardizes to a zero mel gives mu = 0 on both
+    assert np.array_equal(live, np.linalg.norm(zg, axis=-1) > 0) and live.sum() >= 4
+    zc, zg = zc[live], zg[live]
+    rel = np.abs(zg - zc).max(-1) / np.abs(zc).max(-1)
+    cos = (zg * zc).sum(-1) / (np.linalg.norm(zg, axis=-1) * np.linalg.norm(zc, axis=-1))
+    assert rel.max() <= 0.1 and cos.min() >= 0.997
+    loud = np.clip(20.0 * _rows(DEFAULT_MEL, 3, seed=22), -1, 1)
+    alone = s.encode_array(y[2:3])
+    mixed = s.encode_array(np.concatenate([y[2:3], loud]))
+    np.testing.assert_allclose(mixed[0], alone[0], atol=1e-5, rtol=0)

@@ -449,7 +449,7 @@ def test_dispatcher_lists_commands_and_resolves_aliases(monkeypatch, capsys):
     assert set(ALIASES.values()) <= set(COMMANDS)
     new = {"benchmark-folder", "benchmark-folder-map", "calibrate-tau", "run-qout-grid", "scan-soundscape",
            "encode-wav", "normalize", "snapshot-from-log", "spearman-analysis",
-           "train-vae", "print-latents", "make-synth-data"}
+           "train-vae", "print-latents", "make-synth-data", "ingest-encoder", "ingest-decoder"}
     assert new | {"fit-radial", "fit-map", "evaluate-wav", "evaluate-wav-map", "bench"} == set(COMMANDS)
     for alias, cmd in (("10", "benchmark-folder"), ("10b", "benchmark-folder-map"), ("9200", "run-qout-grid"),
                        ("9100", "spearman-analysis"), ("9105", "snapshot-from-log"), ("00", "normalize")):
@@ -458,7 +458,7 @@ def test_dispatcher_lists_commands_and_resolves_aliases(monkeypatch, capsys):
             t_dispatch.main([alias, "--help"])
         assert e.value.code == 0 and f"anuraxla_torch {cmd}" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="unknown command"):
-        t_dispatch.main(["ingest-encoder"])
+        t_dispatch.main(["no-such-command"])
     with pytest.raises(SystemExit) as e:
         t_dispatch.main([])
     assert e.value.code == 1
@@ -489,10 +489,11 @@ def test_subprocess_compat_forwards_every_result_changing_flag():
     flags only when on."""
     args = t_grid.build_parser().parse_args([
         "--fast-frontend", "--frontend-backend", "cuda-bf16", "--transfer-int16", "--pre-padded-host",
-        "--encoder", "enc_dir", "--batch-size", "128", "--device", "cpu",
+        "--quantize-serving", "--encoder", "enc_dir", "--batch-size", "128", "--device", "cpu",
     ])
     shared = t_grid.subprocess_shared_args(args, "cfg.json")
-    for flag in ("--fast-frontend", "--transfer-int16", "--pre-padded-host", "--frontend-backend", "--encoder-dtype",
+    for flag in ("--fast-frontend", "--transfer-int16", "--pre-padded-host", "--quantize-serving",
+                 "--frontend-backend", "--encoder-dtype",
                  "--encoder", "--sr", "--n-mels", "--target-frames", "--fmin", "--fmax", "--hop-length", "--n-fft",
                  "--batch-size", "--io-threads", "--device", "--config"):
         assert flag in shared, flag
@@ -502,7 +503,7 @@ def test_subprocess_compat_forwards_every_result_changing_flag():
     assert tier[tier.index("--encoder-dtype") + 1] == "bfloat16" and "--fast-frontend" in tier
     assert tier[tier.index("--frontend-backend") + 1] == "cuda-bf16"
     off = t_grid.subprocess_shared_args(t_grid.build_parser().parse_args([]), "c.json")
-    assert not {"--fast-frontend", "--transfer-int16", "--pre-padded-host"} & set(off)
+    assert not {"--fast-frontend", "--transfer-int16", "--pre-padded-host", "--quantize-serving"} & set(off)
     assert off[off.index("--device") + 1] == "cuda"
 
 
