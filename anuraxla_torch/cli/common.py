@@ -1,14 +1,13 @@
 """Shared CLI plumbing — the port of ``anuraxla/cli/common.py``: the mel,
 device and encoder flags, ``--serving-tier`` and the three knobs a tier
 bundles, ``--quantize-serving`` (int8 encoder contractions,
-``models.quant``), and the project-root resolution of ``--config`` and
-``--root`` (relative paths resolve against the project root, not the working
-directory, as in the reference).
+``models.quant``), ``--data-parallel`` (batches split over the data shards of
+``parallel.mesh``: the visible cards), and the project-root resolution of
+``--config`` and ``--root`` (relative paths resolve against the project root,
+not the working directory, as in the reference).
 
 The tier table names the port's backends (the reference's ``pallas`` is
-``cuda`` here, ``pallas-bf16`` is ``cuda-bf16``). ``--data-parallel``
-belongs to a later slice of the port (torch.distributed serving) and is not
-a flag here yet.
+``cuda`` here, ``pallas-bf16`` is ``cuda-bf16``).
 """
 
 from __future__ import annotations
@@ -50,6 +49,9 @@ def add_encoder_args(p: argparse.ArgumentParser) -> None:
         "either package); defaults to <project_root>/models/anuraxla_vae_encoder_v0, "
         "falling back to a seeded init (with a warning) if absent",
     )
+    # the reference's hidden flag, accepted so that its command lines parse;
+    # the seeded-init fallback is always allowed
+    p.add_argument("--allow-init-encoder", action="store_true", default=True, help=argparse.SUPPRESS)
 
 
 def add_batch_args(p: argparse.ArgumentParser) -> None:
@@ -80,6 +82,11 @@ def add_batch_args(p: argparse.ArgumentParser) -> None:
         help="STFT/mel implementation (cuda = fused mel kernel, exact f32; "
         "cuda-bf16 = its bf16 mode; matmul / matmul-bf16 = dense bases). "
         "Default: cuda (or the --serving-tier's choice)",
+    )
+    p.add_argument(
+        "--data-parallel", action="store_true",
+        help="split encode batches over every visible card (one encoder replica "
+        "each); fits then run sample-sharded over them (parallel.fit)",
     )
     p.add_argument(
         "--transfer-int16", action="store_true",
@@ -146,6 +153,7 @@ def session_kwargs(args) -> dict:
         "parity": not knobs["fast_frontend"],
         "backend": knobs["frontend_backend"],
         "transfer_int16": getattr(args, "transfer_int16", False),
+        "data_parallel": getattr(args, "data_parallel", False),
         "quantize": getattr(args, "quantize_serving", False),
         "encoder_dtype": knobs["encoder_dtype"],
         "pre_padded_host": getattr(args, "pre_padded_host", False),

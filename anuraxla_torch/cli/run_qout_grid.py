@@ -48,9 +48,8 @@ from anuraxla_torch.cli.spearman_analysis import analyze_grid
 from anuraxla_torch.config import get_chunk_seconds, priority_ranks, require_species
 from anuraxla_torch.constants import CACHE_DIR_NAME
 from anuraxla_torch.detect.calibrate import radial_qgrid
-from anuraxla_torch.detect.radial import fit_radial
 from anuraxla_torch.pipeline.benchmark import run_folder_benchmark
-from anuraxla_torch.pipeline.fit import encode_augmented_tree, fit_radial_tree
+from anuraxla_torch.pipeline.fit import _fit_mesh, _fit_radial_dispatch, encode_augmented_tree, fit_radial_tree
 from anuraxla_torch.pipeline.session import (
     EncoderSession, concat_species_latents, encode_species_tree, pad_species_latents,
 )
@@ -80,6 +79,7 @@ def subprocess_shared_args(args, cfg_path) -> list:
         ("--transfer-int16", args.transfer_int16),
         ("--quantize-serving", args.quantize_serving),
         ("--pre-padded-host", args.pre_padded_host),
+        ("--data-parallel", args.data_parallel),
     ):
         if on:
             shared.append(flag)
@@ -250,14 +250,15 @@ def _device_sweep(args, session, cfg_path, train_dir, val_dir, grid_root, projec
     evaluate every (q_in, q_out) pair from the fit's sorted pools in one
     batched sweep there."""
     species_all = require_species(load_json(cfg_path))
-    dev = session._dev
     Z_by, _, _ = encode_augmented_tree(
         session, train_dir, species_all, augment_noise_db=parse_augment(args.augment_noise_db),
         cache=True, cache_dir=project_root / CACHE_DIR_NAME,
         max_per_class=args.max_per_class, seed=args.seed, log=lambda *a: None,
     )
     species, Z, mask = pad_species_latents(Z_by)
-    fit = fit_radial(torch.from_numpy(Z).to(dev), torch.from_numpy(mask).to(dev), args.q_in, args.q_out_grid[0])
+    # sample-sharded fit when the session is data-parallel (parallel.fit)
+    fit = _fit_radial_dispatch(session, Z, mask, args.q_in, args.q_out_grid[0])
+    dev = fit.centroids.device
 
     def val_latents():
         Zv_by, _, _ = encode_species_tree(
@@ -268,11 +269,21 @@ def _device_sweep(args, session, cfg_path, train_dir, val_dir, grid_root, projec
         return torch.from_numpy(Zv).to(dev), torch.from_numpy(true_idx).to(dev)
 
     Zv, true_idx = val_latents()
+    # data-parallel: the val latents padded to the data axis, as the
+    # reference shards them, with the pad rows masked out of the metrics
+    valid = None
+    mesh = _fit_mesh(session)
+    if mesh is not None:
+        n_data, B = mesh.shape["data"], Zv.shape[0]
+        rem = (-B) % n_data
+        Zv, true_idx = torch.cat([Zv, Zv.new_zeros((rem, Zv.shape[1]))]), torch.cat([true_idx, true_idx.new_zeros(rem)])
+        valid = torch.arange(Zv.shape[0], device=dev) < B
+        print(f"🕸️ device sweep sharded over {n_data} shards (B={B})")
     q_in_grid = args.q_in_grid if args.q_in_grid else [args.q_in]
     ranks = torch.from_numpy(priority_ranks(species)).to(dev)
     qi, qo = np.asarray(q_in_grid, np.float32), np.asarray(args.q_out_grid, np.float32)
     with stage_timer(f"device sweep {len(q_in_grid)}x{len(args.q_out_grid)} grid"):
-        gm = radial_qgrid(fit, Zv, true_idx, ranks, qi, qo)
+        gm = radial_qgrid(fit, Zv, true_idx, ranks, qi, qo, valid)
         acc, nod, accp, nodp = (x.cpu().numpy() for x in (
             gm.accuracy, gm.no_detect_rate, gm.acc_per_class, gm.no_detect_per_class))
 

@@ -10,8 +10,11 @@ On the card the mel stays there and goes straight into the step. On
 ``--device cpu`` the default kernel backend runs its plain version (the JAX
 package switches to its fft backend on the CPU instead). ``--ckpt-dir``
 checkpoints are the port's own format (``models.checkpoint``), not the JAX
-package's orbax ones; the artifacts are shared. ``--data-parallel`` trains on
-the one visible card; over several it exits (ROADMAP A.11).
+package's orbax ones; the artifacts are shared. ``--data-parallel`` trains
+over every visible card (``parallel.train_sharded``: a replica a card, the
+gradients summed across them, one AdamW update); on one card it is the
+single-device loop. With it, ``--resume`` and ``--init-from`` are refused, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from anuraxla_torch.models.checkpoint import (
 from anuraxla_torch.models.train import TrainConfig, create_train_state, train_loop
 from anuraxla_torch.models.vae import VAEConfig, encoder_params_from_vae, init_vae
 from anuraxla_torch.ops.frontend import log_mel_batch, mel_to_encoder_input
+from anuraxla_torch.parallel.mesh import make_mesh
+from anuraxla_torch.parallel.train_sharded import train_loop_sharded
 from anuraxla_torch.pipeline.dataset import iter_batches, scan_species_tree
 from anuraxla_torch.utils.timing import stage_timer
 
@@ -92,9 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="HARD beta=0 for this many steps first (see models.train.TrainConfig)")
     p.add_argument("--latent-dim", type=int, default=128)
     p.add_argument("--bf16", action="store_true", help="bfloat16 trunk compute (params stay f32)")
-    p.add_argument("--data-parallel", action="store_true",
-                   help="train over every visible card: one card trains on it; several are not ported "
-                   "yet (ROADMAP A.11) and exit")
+    # --data-parallel comes from add_batch_args (shared with the encode CLIs)
     p.add_argument("--seed", type=int, default=0)
     add_device_arg(p)
     add_mel_args(p)
@@ -105,9 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
-    if args.data_parallel and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise SystemExit(f"❌ --data-parallel over {torch.cuda.device_count()} cards is not ported yet "
-                         "(ROADMAP A.11); make one card visible (CUDA_VISIBLE_DEVICES) or drop the flag")
     dtype = "bfloat16" if args.bf16 else "float32"
     project_root = project_root_here()
     mel = mel_from_args(args, duration=5.0)
@@ -160,10 +160,18 @@ def main(argv=None) -> None:
         initial_state = restore_train_state(args.ckpt_dir, template)
         print(f"▶ resumed from step {initial_state.step} in {args.ckpt_dir}")
 
+    mesh = make_mesh(device=dev) if args.data_parallel else None
     with stage_timer("train", n_items=args.steps * args.batch_size) as t:
         try:
-            _, state, metrics = train_loop(vcfg, tc, stream, num_steps=args.steps, initial_state=initial_state,
-                                           decoder_spec=decoder_spec, init_params=init_params, device=dev)
+            if mesh is not None and mesh.shape["data"] > 1:
+                if initial_state is not None:
+                    raise SystemExit("❌ --resume with --data-parallel is not supported yet")
+                if init_params is not None:
+                    raise SystemExit("❌ --init-from with --data-parallel is not supported yet")
+                _, state, metrics = train_loop_sharded(vcfg, tc, stream, num_steps=args.steps, mesh=mesh)
+            else:
+                _, state, metrics = train_loop(vcfg, tc, stream, num_steps=args.steps, initial_state=initial_state,
+                                               decoder_spec=decoder_spec, init_params=init_params, device=dev)
         finally:
             stream.close()  # joins the decode prefetch thread
     print(f"🏁 {args.steps} steps in {t.seconds:.1f}s ({t.rate:.1f} examples/s); final {metrics}")

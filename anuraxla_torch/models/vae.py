@@ -120,7 +120,11 @@ def conv_transpose(layer: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv_transpose2d(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype), stride=2, padding=1)
 
 
-def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` in ``x``'s dtype; a layer split over devices
+    (``parallel.train_sharded.ColumnSplitDense``) computes its own."""
+    if not isinstance(layer, nn.Linear):
+        return layer(x)
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 

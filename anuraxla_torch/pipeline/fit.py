@@ -1,10 +1,13 @@
 """Fit orchestration — the port of ``anuraxla/pipeline/fit.py``
 (``encode_augmented_tree``, ``fit_radial_tree``, ``fit_map_tree``): encode a
 labelled species tree, fit a detector on the session's device, and write the
-reference's ``config.json`` block. Shared by the fit-radial and fit-map CLIs.
+reference's ``config.json`` block. Shared by the fit-radial and fit-map CLIs
+and the calibration grid.
 
-The fits run on one device; the JAX package's sample-sharded fit over a mesh
-(``_use_sharded_fit``) belongs to the torch.distributed slice of the port.
+A data-parallel session keeps the fit sample-sharded (``parallel.fit``) over
+the shards of every process (``_fit_mesh``), where there are several — the
+session's own mesh is this process's alone; otherwise the fit runs on the
+session's device.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from anuraxla_torch import config as cfgmod
 from anuraxla_torch.detect.gaussian_map import fit_map, true_class_score_summary
 from anuraxla_torch.detect.radial import fit_radial
 from anuraxla_torch.ops.quantiles import quantile_sorted
+from anuraxla_torch.parallel.fit import fit_map_sharded, fit_radial_sharded
+from anuraxla_torch.parallel.mesh import Mesh, make_mesh
 from anuraxla_torch.pipeline.session import EncoderSession, encode_species_tree, pad_species_latents
 
 
@@ -29,6 +34,37 @@ def _f(x) -> float:
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def _fit_mesh(session: EncoderSession) -> Optional[Mesh]:
+    """The mesh a data-parallel session's fits shard over: every shard of
+    every process (``make_mesh``), where there are several; else None."""
+    if not session.data_parallel:
+        return None
+    mesh = make_mesh(device=session._dev)
+    return mesh if mesh.shape["data"] > 1 else None
+
+
+def _use_sharded_fit(session: EncoderSession) -> bool:
+    """Data-parallel sessions over several shards keep the fit sample-sharded
+    over the mesh (latents never gather onto one device: parallel.fit)."""
+    return _fit_mesh(session) is not None
+
+
+def _fit_radial_dispatch(session, Z, mask, q_in, q_out):
+    mesh = _fit_mesh(session)
+    if mesh is not None:
+        return fit_radial_sharded(Z, mask, q_in, q_out, mesh=mesh)
+    dev = session._dev
+    return fit_radial(torch.from_numpy(Z).to(dev), torch.from_numpy(mask).to(dev), q_in, q_out)
+
+
+def _fit_map_dispatch(session, Z, mask, **kw):
+    mesh = _fit_mesh(session)
+    if mesh is not None:
+        return fit_map_sharded(Z, mask, mesh=mesh, **kw)
+    dev = session._dev
+    return fit_map(torch.from_numpy(Z).to(dev), torch.from_numpy(mask).to(dev), **kw)
 
 
 def encode_augmented_tree(
@@ -98,8 +134,7 @@ def fit_radial_tree(
         raise SystemExit("❌ no species could be encoded — check --root and the pipeline.")
 
     species, Z, mask = pad_species_latents(Z_by)
-    dev = session._dev
-    fit = fit_radial(torch.from_numpy(Z).to(dev), torch.from_numpy(mask).to(dev), q_in, q_out)
+    fit = _fit_radial_dispatch(session, Z, mask, q_in, q_out)
 
     # rho summaries from the fit's sorted distance pools (no host recompute)
     def pool_summary(sorted_pool: torch.Tensor, n_valid: torch.Tensor):
@@ -194,10 +229,10 @@ def fit_map_tree(
             "likely reject every input once tau is set. Use `--preset small-n` "
             "(diag + shrink 0.1) or raise --shrink/--eps."
         )
-    dev = session._dev
+    fit = _fit_map_dispatch(session, Z, mask, cov_type=cov_type, cov_structure=cov_structure,
+                            priors_mode=priors_mode, eps=eps, shrink=shrink, tau_q=tau_q)
+    dev = fit.means.device
     Zt, mt = torch.from_numpy(Z).to(dev), torch.from_numpy(mask).to(dev)
-    fit = fit_map(Zt, mt, cov_type=cov_type, cov_structure=cov_structure, priors_mode=priors_mode,
-                  eps=eps, shrink=shrink, tau_q=tau_q)
 
     summaries = {k: _np(v) for k, v in true_class_score_summary(fit, Zt, mt).items()}
     n_k = mask.sum(1)

@@ -16,6 +16,15 @@ Two batches are in flight: batch i−1's latents are fetched only after batch
 i is dispatched, while batch i+1 decodes. ``encode_array`` copies its rows
 into a slot (PCM16-converted with ``transfer_int16``).
 
+``data_parallel=True`` splits each batch over this process's data shards
+(``parallel.mesh.make_mesh(local=True)``: the visible cards;
+``set_default_devices`` for others — encode stays process-local under a
+process group too): ``batch_size`` is rounded up to a multiple of the shard count, each
+shard's rows of the host slot go to its device, and each device runs the
+forward with its own replica of the encoder; ragged batches are padded with
+zero rows and the latents sliced back. With one shard (one card, or the CPU)
+the session is the single-device path.
+
 Weights: ``load(params=state_dict)``, else the encoder artifact
 (``encoder_dir``, else ``<project_root>/models/anuraxla_vae_encoder_v0``;
 ``models.checkpoint``), else a seeded random init (``init_seed``), with a
@@ -50,6 +59,8 @@ from anuraxla_torch.ops.frontend import (
     BACKENDS, arithmetic_backend, log_mel_batch, mel_to_encoder_input, rms_scale_batch,
 )
 from anuraxla_torch.ops.mel_kernel import kernel_takes, phase_padded_layout
+from anuraxla_torch.parallel.encode import replicate
+from anuraxla_torch.parallel.mesh import batch_sharded, make_mesh, pad_to_multiple
 from anuraxla_torch.pipeline.dataset import iter_batches, scan_species_tree, subsample_paths
 
 HOST_SLOTS = 3  # slots of a host ring: batch i+1 decodes while i transfers and i−1 may still be copying
@@ -85,7 +96,7 @@ class HostRing:
         self.device = device
         self.bufs = [torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda") for _ in range(HOST_SLOTS)]
         self.views = [b.numpy() for b in self.bufs]
-        self._sent: List[Optional[torch.cuda.Event]] = [None] * HOST_SLOTS
+        self._sent: List[List[torch.cuda.Event]] = [[] for _ in range(HOST_SLOTS)]
         self._next = 0
         self._lock = threading.Lock()
 
@@ -94,27 +105,37 @@ class HostRing:
         return tuple(self.bufs[0].shape)
 
     def claim(self) -> np.ndarray:
-        """The next slot's rows, once the transfer that last read it is done."""
+        """The next slot's rows, once the transfers that last read it are done."""
+        return self.views[self.claim_slot()]
+
+    def claim_slot(self) -> int:
+        """The next slot's index, once the transfers that last read it are done."""
         with self._lock:
             k = self._next
             self._next = (k + 1) % len(self.bufs)
-        if self._sent[k] is not None:
-            self._sent[k].synchronize()
-        return self.views[k]
+        for done in self._sent[k]:
+            done.synchronize()
+        self._sent[k] = []
+        return k
 
-    def holds(self, rows: np.ndarray) -> bool:
-        return any(rows is v for v in self.views)
+    def slot_of(self, rows: np.ndarray) -> Optional[int]:
+        """The index of the slot whose rows ``rows`` are, else None."""
+        return next((k for k, v in enumerate(self.views) if v is rows), None)
 
-    def send(self, rows: np.ndarray) -> torch.Tensor:
-        """A claimed slot -> device: a non-blocking copy on a card (its event
-        recorded after it), the buffer itself on the CPU."""
-        k = next(i for i, v in enumerate(self.views) if v is rows)
-        if self.device.type != "cuda":
-            return self.bufs[k]
-        out = self.bufs[k].to(self.device, non_blocking=True)
+    def send(self, k: int, start: int = 0, stop: Optional[int] = None,
+             device: Optional[torch.device] = None) -> torch.Tensor:
+        """Slot ``k``'s rows ``start:stop`` (a data shard's; default all) ->
+        the ring's device or ``device``: a non-blocking copy on a card (an
+        event recorded after it on that card's stream), the buffer's rows
+        themselves on the CPU."""
+        buf = self.bufs[k][start:stop]
+        dev = self.device if device is None else torch.device(device)
+        if dev.type != "cuda":
+            return buf
+        out = buf.to(dev, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
-        self._sent[k] = done
+        done.record(torch.cuda.current_stream(dev))
+        self._sent[k].append(done)
         return out
 
 
@@ -146,6 +167,8 @@ class EncoderSession:
     # per (noise_seed, global row index); None = clean
     add_noise_db: Optional[float] = None
     noise_seed: int = 0
+    # split batches over this process's data shards (parallel.mesh.make_mesh(local=True))
+    data_parallel: bool = False
     num_threads: int = 16
     init_seed: int = 0  # seeded weights when there are no params and no artifact
     device: str = "cuda"
@@ -176,6 +199,21 @@ class EncoderSession:
         self._q = quantize_encoder(params, cfg, device=self._dev) if self.quantize else None
         self.latent_dim = cfg.latent_dim
         self._rings: Dict[torch.dtype, HostRing] = {}
+        self._mesh = None
+        if self.data_parallel:
+            mesh = make_mesh(device=self._dev, local=True)  # encode stays process-local
+            nd = mesh.shape["data"]
+            if nd > 1:
+                if self.batch_size % nd:
+                    self.batch_size = -(-self.batch_size // nd) * nd
+                    print(f"ℹ️ data-parallel: batch_size rounded up to {self.batch_size} ({nd}-way even shards)")
+                self._mesh = mesh
+                # one encoder replica, and its int8 weights, on each distinct shard device
+                self._replicas = {
+                    d: (enc, self._q if enc is self._enc else
+                        quantize_encoder(params, cfg, device=d) if self.quantize else None)
+                    for d, enc in replicate(self._enc, mesh).items()
+                }
         self._setup_layout()
         return self
 
@@ -252,27 +290,36 @@ class EncoderSession:
             ring = self._rings[dtype] = HostRing(tuple(shape), dtype, self._dev)
         return ring
 
-    def _to_device(self, audio: np.ndarray) -> torch.Tensor:
-        """Host rows -> device through a host ring. A slot of the f32 ring
-        (``encode_paths`` decoded into it) goes as it is; other rows — raw
-        [B, num_samples] (staged into the pre-padded layout where the session
-        uses it) or already in the session's row layout — are written into a
-        slot first, PCM16-converted with ``transfer_int16``."""
+    def _to_slot(self, audio: np.ndarray) -> Tuple[HostRing, int]:
+        """Host rows -> (a host ring, the index of its slot holding them). A
+        slot of the f32 ring (``encode_paths`` decoded into it) is used as it
+        is; other rows — raw [B, num_samples] (staged into the pre-padded
+        layout where the session uses it) or already in the session's row
+        layout — are written into a slot first, PCM16-converted with
+        ``transfer_int16``."""
         f32 = self._rings.get(torch.float32)
-        if not self.transfer_int16 and f32 is not None and f32.holds(audio):
-            return f32.send(audio)
+        k = f32.slot_of(audio) if f32 is not None and not self.transfer_int16 else None
+        if k is not None:
+            return f32, k
         row_len, col = (self._layout if self._layout is not None and audio.shape[1] == self.mel.num_samples
                         else (audio.shape[1], 0))
         ring = self._ring((audio.shape[0], row_len), torch.int16 if self.transfer_int16 else torch.float32)
-        rows = ring.claim()
-        window = rows[:, col : col + audio.shape[1]]
+        k = ring.claim_slot()
+        window = ring.views[k][:, col : col + audio.shape[1]]
         if self.transfer_int16 and audio.dtype != np.int16:
             to_pcm16(audio, window)
         else:
             window[...] = audio
-        return ring.send(rows)
+        return ring, k
 
-    def _forward(self, audio: torch.Tensor) -> torch.Tensor:
+    def _to_device(self, audio: np.ndarray) -> torch.Tensor:
+        ring, k = self._to_slot(audio)
+        return ring.send(k)
+
+    def _forward(self, audio: torch.Tensor, replica: Optional[tuple] = None) -> torch.Tensor:
+        """The device forward of one batch (``replica``: a data shard's
+        (encoder, int8 weights); default the session's own)."""
+        enc, q = replica or (self._enc, self._q)
         if self.transfer_int16:
             audio = audio.to(torch.float32) / 32768.0
         scale = None
@@ -287,14 +334,27 @@ class EncoderSession:
             audio, self.mel, parity=self.parity, backend=self.backend,
             rms_scale=scale, pre_padded=self._layout is not None,
         )
-        if self._q is not None:
-            return encoder_apply_quantized(self._q, self._enc_cfg, mel_to_encoder_input(mels))["mu"]
-        return self._enc(mel_to_encoder_input(mels))["mu"]
+        if q is not None:
+            return encoder_apply_quantized(q, self._enc_cfg, mel_to_encoder_input(mels))["mu"]
+        return enc(mel_to_encoder_input(mels))["mu"]
 
     def _dispatch(self, audio: np.ndarray) -> torch.Tensor:
-        """Start the device computation for one batch without fetching."""
+        """Start the device computation for one batch without fetching. Over
+        several data shards, a ragged batch is padded with zero rows to a
+        multiple of their count (callers slice results to their own rows),
+        and each shard's rows of the host slot go to its device."""
         with torch.inference_mode():
-            return self._forward(self._to_device(audio))
+            if self._mesh is None:
+                return self._forward(self._to_device(audio))
+            audio, _ = pad_to_multiple(audio, self._mesh.shape["data"])
+            ring, k = self._to_slot(audio)
+            slices = self._mesh.local_slices(audio.shape[0])
+
+            def shard(i: int, _rows) -> torch.Tensor:
+                dev = self._mesh.data_devices[i]
+                return self._forward(ring.send(k, *slices[i], device=dev), self._replicas[dev])
+
+            return batch_sharded(shard, self._mesh)(audio)
 
     def encode_array(self, audio: np.ndarray) -> np.ndarray:
         """[B, num_samples] (or pre-padded) waveforms -> [B, D] latents."""

@@ -104,7 +104,27 @@ failure exits non-zero):
    (kernel, plain, bound, the library route, f32 / bf16 cuDNN), the encoder a
    batch (int8, f32, bf16 trunks) and ``encode_array`` (int8, parity,
    balanced);
-9. the kernel study, after every serving phase so that those run as they did
+9. the parallel path (``anuraxla_torch.parallel``) at full width on the one
+   card, whose in-process mesh repeats ``cuda:0`` as 4 data shards:
+   ``EncoderSession(data_parallel=True)`` over the one card bitwise the single
+   session on the six serving WAVs; over 4 shards at B = 1024 on the fit
+   phase's 4096 paths, the parity tier held to the single session (rtol 5e-4 /
+   atol 2e-5, decisions identical, ``mel_power_ct`` launched 4x as often), the
+   balanced tier by cosine (>= 0.999), both timed; ``fit_radial_sharded`` and
+   ``fit_map_sharded`` (LDA full; QDA diag, shrink 0.1; tau q 0.05) on the fit
+   phase's latents against the single-device fits on the card (the fit
+   phase's gates), ``sharded_quantile`` on a [4, 2^20] pool within 1 ulp of
+   ``masked_quantile``, each timed against its single-device version; an NCCL
+   group of world size 1 (``initialize_multihost``: ``psum`` through it, every
+   path kept); one f32 step of ``make_sharded_train_step`` at B = 64 over 2
+   data x 2 model shards (the encoder's dense and heads split) against the
+   unsharded step with the same noise (loss rtol 1e-4, gradients 1e-4 of each
+   tensor's max, parameters rtol 2e-3 / atol 2e-4), and ``train-vae
+   --data-parallel`` for 4 steps equal to the run without the flag;
+   ``fit-radial --data-parallel --allow-init-encoder`` and ``run-qout-grid
+   --device-sweep --data-parallel`` over the 4 shards against the same without
+   the flag;
+10. the kernel study, after every serving phase so that those run as they did
    before it existed: hold the split-bf16 tensor-core kernel
    (``fused_dots=True``: a TMA ring, wgmma) to its plain version, exact and
    bf16, at ``DEFAULT_MEL`` pre-padded, at the fast tier's frame range, at hop
@@ -118,9 +138,10 @@ failure exits non-zero):
    each module of ``anuraxla_torch.probes`` and of ``anuraxla_torch.bench``
    (the split kernel's counts must move there); time the split kernel, with
    the L2 bytes of its table stream;
-10. print the kernels line (``mel_power_ct``'s also with its launches on the
-   fit path, it and ``mel_power_ct_bf16`` on the training path; every
-   kernel's on the evaluation path), the card's name and power limit, and last the device line.
+11. print the kernels line (``mel_power_ct``'s also with its launches on the
+   fit path, the parallel path, it and ``mel_power_ct_bf16`` on the training
+   path; every kernel's on the evaluation path), the card's name and power
+   limit, and last the device line.
 
 ``--dense-checkpoints`` is a diagnostic: it also times the dense kernel between
 the phases and, last, with its fragment tables uploaded again at other
@@ -1015,7 +1036,7 @@ def host_split(sess, paths, route: str, reps: int = 2) -> dict:
         else:
             ring, slot = f32, rows
         t2 = time.perf_counter()
-        ring.send(slot)
+        ring.send(ring.slot_of(slot))
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         for k, v in (("decode", t1 - t0), ("copy", t2 - t1), ("transfer", t3 - t2)):
@@ -1116,6 +1137,7 @@ def phase_fit_path(seed: int, rng, root: Path) -> dict:
     if routes["native"] <= 0 or routes["python"]:
         raise AssertionError(f"the fit path did not decode through the native decoder alone: {routes}")
     out["launches"] = counts["mel_power_ct"]
+    out.update(Z=qda["Z"], mask=qda["mask"], species=qda["species"])
 
     # the same fits on the CPU, from the card's latents
     def on(dev, *arrays):
@@ -2429,6 +2451,346 @@ def phase_int8_path(seed: int, root: Path) -> dict:
     return {"errors": errors, "launches": launches, "times": times}
 
 
+PAR_SHARDS = 4  # data shards of the parallel phase's meshes, all on cuda:0
+PAR_QUANTILE_N = 1 << 20  # samples a row of the sharded_quantile pool
+# the sharded-vs-unsharded steps, as the JAX suite sets them (tests/test_parallel.py:99): lr 1e-3 after one
+# warm-up step at lr 0, so the second step moves a parameter by about lr, 5x the parameters' atol of 2e-4
+PAR_TRAIN_LR, PAR_TRAIN_STEPS = 1e-3, 2
+
+
+def phase_parallel_path(seed: int, fit_root: Path, fit: dict, train_root: Path) -> dict:
+    """The parallel path (``anuraxla_torch.parallel``) at full width
+    (``DEFAULT_MEL``, default ``VAEConfig``) on the one card: the data
+    shards of the in-process mesh are repeated ``cuda:0`` shards, and the
+    cross-process level an NCCL group of world size 1.
+
+    1. serving: ``EncoderSession(data_parallel=True)`` over the one card
+       (one shard: the single-device path) on the six serving WAVs, bitwise
+       the single session, ``mel_power_ct`` counted; then over
+       ``PAR_SHARDS`` shards at B = 1024 on the fit phase's 4096 paths: the
+       parity tier's latents held to the single session's (rtol 5e-4 / atol
+       2e-5), the decisions identical, ``mel_power_ct`` launched
+       ``PAR_SHARDS`` times as often; the balanced tier's (bf16 trunk) held
+       by cosine, and both timed;
+    2. the fits: ``fit_radial_sharded`` and ``fit_map_sharded`` (LDA full;
+       QDA diag, shrink 0.1; tau q 0.05) on the fit phase's latents over the
+       shards, held to the single-device fits on the card (centroids, rk,
+       means 1e-5; logdets, tau 1e-4; decisions identical);
+       ``sharded_quantile`` on a [4, 2^20] pool within 1 ulp of
+       ``masked_quantile``; all timed against the single-device versions;
+    3. ``initialize_multihost`` at world size 1 (NCCL, localhost): ``psum``
+       through the group equals the local sum, ``shard_paths_for_host``
+       keeps every path; the group is destroyed;
+    4. training: two f32 steps of ``make_sharded_train_step`` at B = 64
+       over a (2 data x 2 model) mesh, the encoder's dense and heads split,
+       held to the unsharded steps with the same noise, the first at lr 0
+       (the warm-up) and the second at lr 1e-3: at each step the loss (rtol
+       1e-4) and the gradients, read from AdamW's first moment (1e-4 of each
+       tensor's max); then the parameters (rtol 2e-3 / atol 2e-4, a fifth of
+       the second step's move); ``train-vae --data-parallel`` for 4 steps on
+       the training phase's tree equal to the run without the flag;
+    5. the CLIs over the shards on the fit phase's project: ``fit-radial
+       --data-parallel --allow-init-encoder`` and ``run-qout-grid
+       --device-sweep --data-parallel`` against the same without the flag.
+    -> {"launches": mel_power_ct launches on the path, "times": {...}}."""
+    import argparse as ap
+    import csv
+    import socket
+
+    from anuraxla_torch.cli import fit_radial as fit_radial_cli
+    from anuraxla_torch.cli import run_qout_grid, train_vae
+    from anuraxla_torch.cli.common import session_kwargs
+    from anuraxla_torch.cli.evaluate_wav import detect_species
+    from anuraxla_torch.config import load_config, priority_ranks, read_radial
+    from anuraxla_torch.constants import DEFAULT_MEL as cfg
+    from anuraxla_torch.detect.gaussian_map import fit_map, map_decide
+    from anuraxla_torch.detect.radial import fit_radial, radial_decide
+    from anuraxla_torch.models.checkpoint import load_encoder
+    from anuraxla_torch.models.train import TrainConfig, create_train_state, make_train_step, step_noise
+    from anuraxla_torch.models.vae import VAEConfig
+    from anuraxla_torch.ops.frontend import log_mel_batch, mel_to_encoder_input
+    from anuraxla_torch.ops.mel_kernel import mel_power, reset_launches
+    from anuraxla_torch.ops.quantiles import masked_quantile
+    from anuraxla_torch.parallel import mesh as pmesh
+    from anuraxla_torch.parallel.fit import fit_map_sharded, fit_radial_sharded, sharded_quantile
+    from anuraxla_torch.parallel.multihost import global_mesh, initialize_multihost, shard_paths_for_host
+    from anuraxla_torch.parallel.train_sharded import ColumnSplitDense, make_sharded_train_step, shard_state
+    from anuraxla_torch.pipeline.dataset import load_wav_batch, scan_species_tree
+    from anuraxla_torch.pipeline.session import EncoderSession
+    from anuraxla_torch.probes.common import card_line
+
+    smi = card_line()
+    times = {}
+    shards = [torch.device("cuda", 0)] * PAR_SHARDS
+    enc_dir, cfg_path = fit_root / "encoder", fit_root / "config.json"
+
+    def timed(fn, reps: int = 1):
+        """-> (fn's last result, the fastest of ``reps`` calls in ms, host
+        clock, synchronized)."""
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return out, best
+
+    def tier(name: str, batch: int) -> dict:
+        return session_kwargs(ap.Namespace(serving_tier=name, batch_size=batch, io_threads=8, pre_padded_host=True))
+
+    def session(dp: bool, **kw):
+        return EncoderSession(mel=cfg, encoder_dir=enc_dir, project_root=fit_root, **dict(kw, data_parallel=dp)).load()
+
+    # 1a. data_parallel over the one visible card: the single-device path, bitwise
+    wavs = write_inputs(fit_root, cfg, np.random.default_rng([seed, 10]))
+    single, dp1 = session(False, **tier("balanced", 64)), session(True, **tier("balanced", 64))
+    if dp1._mesh is not None or pmesh.make_mesh(device="cuda").shape["data"] != torch.cuda.device_count():
+        raise AssertionError("a data-parallel session over one card must be the single-device session")
+    Zs, _, _ = single.encode_paths(wavs)
+    serve_cfg = write_config(fit_root / "serve_config.json", Zs)
+    reset_launches()
+    Zd, ok, _ = dp1.encode_paths(wavs)
+    dec = [detect_species(p, dp1, serve_cfg)[:2] for p in wavs]
+    torch.cuda.synchronize()
+    launches = mel_power.launches["mel_power_ct"]
+    want = [detect_species(p, single, serve_cfg)[:2] for p in wavs]
+    log(f"[parallel] data_parallel session over the one card, balanced tier, {len(wavs)} serving WAVs: latents "
+        f"bitwise the single session's {np.array_equal(Zd, Zs)}, decisions {dec}; mel_power_ct {launches}")
+    if not (ok.all() and np.array_equal(Zd, Zs) and dec == want and launches > 0):
+        raise AssertionError(f"data-parallel session over one card: bitwise {np.array_equal(Zd, Zs)}, decisions "
+                             f"{dec} vs {want}, launches {launches}")
+
+    # 1b. PAR_SHARDS shards on cuda:0 at B = 1024 over the fit phase's 4096 paths
+    files = sorted((fit_root / "chunks").rglob("*.wav"))
+    paths = [files[i % len(files)] for i in range(FIT_TIMING_PATHS)]
+    species, cent, rk, _ = read_radial(load_config(cfg_path))
+    cent, rk = torch.from_numpy(cent).float().cuda(), torch.from_numpy(rk).float().cuda()
+    ranks = torch.from_numpy(priority_ranks(species)).cuda()
+
+    def decide(Z: np.ndarray) -> list:
+        return [v.cpu() for v in radial_decide(torch.from_numpy(Z).cuda(), cent, rk, ranks)[:2]]
+
+    Zt = {}
+    pmesh.set_default_devices(shards)
+    try:
+        for name in ("parity", "balanced"):
+            for dp in (False, True):
+                s = session(dp, **tier(name, TIMING_B))
+                if dp and s._mesh.shape != {"data": PAR_SHARDS, "model": 1}:
+                    raise AssertionError(f"the {PAR_SHARDS}-shard session's mesh is {s._mesh.shape}")
+                s.encode_paths(paths[:TIMING_B])  # warm-up: slots, cuDNN's choices, the page cache
+                reset_launches()
+                (Z, ok, _), ms = timed(lambda: s.encode_paths(paths))
+                n = mel_power.launches["mel_power_ct"]
+                if not ok.all() or Z.shape != (FIT_TIMING_PATHS, 128) or not np.isfinite(Z).all():
+                    raise AssertionError(f"{name} {dp}: decode failures or latents not finite")
+                Zt[name, dp] = (Z, n)
+                times[f"encode_paths {name} chunks/s, {PAR_SHARDS if dp else 1} shard(s)"] = FIT_TIMING_PATHS / ms * 1e3
+                del s
+                torch.cuda.empty_cache()
+        (Z1, n1), (Z4, n4) = Zt["parity", False], Zt["parity", True]
+        d1, d4 = decide(Z1), decide(Z4)
+        same = bool(torch.equal(d1[0], d4[0]) and torch.equal(d1[1], d4[1]))
+        (B1, m1), (B4, m4) = Zt["balanced", False], Zt["balanced", True]
+        cos = live_cosine(B4, B1, "balanced 4 shards vs 1")
+        bd1, bd4 = decide(B1), decide(B4)
+        log(f"[parallel] encode_paths over {PAR_SHARDS} shards on cuda:0 vs 1, B={TIMING_B}, {FIT_TIMING_PATHS} "
+            f"paths: parity max|diff| {np.abs(Z4 - Z1).max():.3e} (rtol 5e-4, atol 2e-5), decisions identical "
+            f"{same}; mel_power_ct {n1} -> {n4} (parity), {m1} -> {m4} (balanced); balanced (bf16 trunk) cosine min "
+            f"{cos.min():.6f} (>= 0.999), max|diff| {np.abs(B4 - B1).max():.3e}, decisions differ on "
+            f"{int((bd1[1] != bd4[1]).sum())} of {FIT_TIMING_PATHS}")
+        np.testing.assert_allclose(Z4, Z1, rtol=5e-4, atol=2e-5)
+        if not same or n4 != PAR_SHARDS * n1 or m4 != PAR_SHARDS * m1 or not cos.min() >= 0.999:
+            raise AssertionError(f"{PAR_SHARDS}-shard session: decisions identical {same}, launches {n1} -> {n4}, "
+                                 f"{m1} -> {m4}, balanced cosine {cos.min()}")
+        launches += n4 + m4
+
+        # 2. the fits over the shards against the single-device fits on the card
+        mesh = pmesh.make_mesh(device="cuda")
+        Z, mask = fit["Z"], fit["mask"]
+        Zc, mc = torch.from_numpy(Z).cuda(), torch.from_numpy(mask).cuda()
+        map_kw = {"lda": dict(cov_type="lda", cov_structure="full", shrink=0.0),
+                  "qda": dict(cov_type="qda", cov_structure="diag", shrink=0.1)}
+        fits = {}
+        for reps in (1, 5):  # the fastest of five after one call of each (it builds cuSOLVER's handles)
+            for name, one, sharded in (
+                    ("radial", lambda: fit_radial(Zc, mc, 0.95, 0.01),
+                     lambda: fit_radial_sharded(Z, mask, 0.95, 0.01, mesh=mesh)),
+                    *((name, (lambda kw=kw: fit_map(Zc, mc, priors_mode="empirical", eps=1e-6, tau_q=0.05, **kw)),
+                       (lambda kw=kw: fit_map_sharded(Z, mask, mesh=mesh, priors_mode="empirical", eps=1e-6,
+                                                      tau_q=0.05, **kw)))
+                      for name, kw in map_kw.items())):
+                a, ms_one = timed(one, reps)
+                b, ms_sh = timed(sharded, reps)
+                fits[name] = (a, b)
+                times[f"fit {name} ms, 1 / {PAR_SHARDS} shards"] = (ms_one, ms_sh)
+        flat = torch.from_numpy(Z[mask]).cuda()
+        franks = torch.from_numpy(priority_ranks(fit["species"])).cuda()
+        a, b = fits["radial"]
+        errs = {"centroids": row_rel_err(b.centroids.cpu().numpy(), a.centroids.cpu().numpy()),
+                "rk": float((b.rk / a.rk - 1).abs().max())}
+        ra, rb = radial_decide(flat, a.centroids, a.rk, franks), radial_decide(flat, b.centroids, b.rk, franks)
+        same = [bool(torch.equal(ra[0], rb[0]) and torch.equal(ra[1], rb[1]))]
+        for name in map_kw:
+            a, b = fits[name]
+            errs[f"{name} means"] = row_rel_err(b.means.cpu().numpy(), a.means.cpu().numpy())
+            errs[f"{name} logdets"] = float((b.logdets / a.logdets - 1).abs().max())
+            errs[f"{name} tau"] = abs(float(b.tau) / float(a.tau) - 1)
+            ma = map_decide(flat, a.means, a.precisions, a.logdets, a.priors, a.tau)
+            mb = map_decide(flat, b.means, b.precisions, b.logdets, b.priors, b.tau)
+            same.append(bool(torch.equal(ma[0], mb[0]) and torch.equal(ma[1], mb[1])))
+        gates = {k: (FIT_RTOL_LOGDET if ("logdet" in k or "tau" in k) else FIT_RTOL) for k in errs}
+        bad = {k: v for k, v in errs.items() if not v <= gates[k]}
+        log(f"[parallel] sharded fits over {PAR_SHARDS} shards vs single-device on the card, {int(mask.sum())} "
+            f"latents: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (gates {FIT_RTOL} / {FIT_RTOL_LOGDET}); decisions identical (radial, lda, qda) {same}")
+        if bad or not all(same):
+            raise AssertionError(f"sharded fits disagree with the single-device fits: {bad}, decisions {same}")
+
+        g = torch.Generator(device="cuda").manual_seed(seed + 10)
+        d = torch.rand((4, PAR_QUANTILE_N), generator=g, device="cuda") * 7.0
+        d[2] = torch.round(d[2] * 2.0) / 2.0  # heavy ties
+        qmask = torch.rand((4, PAR_QUANTILE_N), generator=g, device="cuda") > 0.1
+        for q in (0.05, 0.3337, 0.95):
+            got, ms_sh = timed(lambda: sharded_quantile(d, qmask, q, mesh=mesh), 4)
+            ref, ms_sort = timed(lambda: masked_quantile(d, qmask, q), 4)
+            rel = float(((got - ref).abs() / ref.abs()).max())
+            times[f"sharded_quantile q={q} ms vs sort"] = (ms_sh, ms_sort)
+            log(f"[parallel] sharded_quantile q={q} on [4, {PAR_QUANTILE_N}] over {PAR_SHARDS} shards: max rel diff to "
+                f"masked_quantile {rel:.3e} (1 ulp: rtol 3e-7); {ms_sh:.2f} ms vs the sort {ms_sort:.2f} ms")
+            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=3e-7, atol=0.0)
+    finally:
+        pmesh.set_default_devices(None)
+
+    # 3. an NCCL group of world size 1 on localhost
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    joined = initialize_multihost(f"localhost:{port}", num_processes=1, process_id=0, device="cuda")
+    try:
+        gm = global_mesh(device="cuda")
+        t = torch.arange(1.0, 5.0, device="cuda")
+        summed = pmesh.psum([t, 2 * t], gm)
+        kept = shard_paths_for_host(paths)
+        log(f"[parallel] initialize_multihost (NCCL, world 1): joined {joined}, backend "
+            f"{torch.distributed.get_backend()}, mesh {gm.shape}, psum through the group {summed.tolist()}, "
+            f"shard_paths_for_host keeps {len(kept)} of {len(paths)}")
+        if not (joined and gm.group is not None and torch.equal(summed, 3 * t) and kept == paths):
+            raise AssertionError("world-size-1 NCCL group: psum or the path shard is wrong")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # 4. one sharded f32 train step (2 data x 2 model shards) against the unsharded one
+    tfiles = sorted(p for ws in scan_species_tree(train_root / "train_chunks").values() for p in ws)
+    audio = load_wav_batch(tfiles[:TRAIN_B], sr=cfg.sr, num_samples=cfg.num_samples, num_threads=8).audio
+    mel_b = mel_to_encoder_input(log_mel_batch(torch.from_numpy(audio).cuda(), cfg))
+    vcfg, tc = VAEConfig(), TrainConfig(learning_rate=PAR_TRAIN_LR, warmup_steps=1, beta=0.25, kl_delay_steps=0,
+                                        kl_warmup_steps=0, seed=seed)
+    _, plain = create_train_state(vcfg, tc)
+    _, state = create_train_state(vcfg, tc)
+    mesh = pmesh.make_mesh(devices=shards, model_axis=2)
+    ss, shardings = shard_state(state, mesh)
+    split = sorted({k.rpartition(".")[0] for k, v in shardings.items() if v})
+    if not {"encoder.dense", "encoder.head_mu", "encoder.head_logvar"} <= set(split) or not isinstance(
+            ss.replicas[0].encoder.dense, ColumnSplitDense):
+        raise AssertionError(f"model_axis 2 did not split the encoder's dense and heads: {split}")
+    plain_step, sharded_step = make_train_step(tc.beta), make_sharded_train_step(tc.beta, mesh)
+    pa, pb = dict(plain.model.named_parameters()), dict(ss.state.model.named_parameters())
+    p0 = {k: p.detach().clone() for k, p in pa.items()}
+    losses, grad_errs = [], []
+    for i in range(PAR_TRAIN_STEPS):
+        eps = step_noise(seed, i, (TRAIN_B, vcfg.latent_dim), "cuda")
+        plain, pm = plain_step(plain, mel_b, eps)
+        ss, sm = sharded_step(ss, mel_b, eps)
+        losses.append((float(sm["loss"]), float(pm["loss"])))
+        grad_errs.append(max(
+            float((ss.state.optimizer.state[pb[k]]["exp_avg"] - plain.optimizer.state[pa[k]]["exp_avg"]).abs().max()
+                  / plain.optimizer.state[pa[k]]["exp_avg"].abs().max().clamp_min(1e-30)) for k in pa))
+    loss_rel = max(abs(b / a - 1) for b, a in losses)
+    grad_err = max(grad_errs)
+    moved = {k: float((pa[k].detach() - p0[k]).abs().max()) for k in pa}
+    param_err = max(float(((pb[k] - pa[k]).abs() - 2e-3 * pa[k].abs()).max().detach()) for k in pa)
+    log(f"[parallel] sharded train steps, B={TRAIN_B}, mesh {mesh.shape} on cuda:0, split {split}, lr 0 then "
+        f"{PAR_TRAIN_LR}: losses (sharded, unsharded) {losses} (max rel {loss_rel:.2e}, rtol 1e-4); gradients "
+        f"(AdamW's first moment) {', '.join(f'{e:.3e}' for e in grad_errs)} of each tensor's max (1e-4); "
+        f"parameters max(|diff| - 2e-3|p|) {param_err:.3e} (atol 2e-4), the unsharded step moved each tensor's "
+        f"elements by at most {min(moved.values()):.3e} .. {max(moved.values()):.3e}")
+    for k in pa:
+        np.testing.assert_allclose(pb[k].detach().cpu().numpy(), pa[k].detach().cpu().numpy(), rtol=2e-3,
+                                   atol=2e-4, err_msg=k)
+    if not (loss_rel <= 1e-4 and grad_err <= 1e-4):
+        raise AssertionError(f"sharded train steps: loss rel {loss_rel}, gradients {grad_errs}")
+    times["train step ms, unsharded / 2x2 shards"] = (timed(lambda: plain_step(plain, mel_b, eps), 5)[1],
+                                                      timed(lambda: sharded_step(ss, mel_b, eps), 5)[1])
+
+    # train-vae --data-parallel on one card: the run without the flag
+    outs = {}
+    with contextlib.chdir(train_root), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                                  deterministic=True, allow_tf32=False):
+        for flag in ([], ["--data-parallel"]):
+            buf = io.StringIO()
+            reset_launches()
+            with contextlib.redirect_stdout(buf):
+                train_vae.main(["--root", "train_chunks", "--batch-size", str(TRAIN_B), "--io-threads", "8",
+                                "--steps", "4", "--seed", str(seed), "--out", f"par{len(flag)}", *flag])
+            final = re.search(r"final (\{.*\})$", buf.getvalue(), re.M).group(1)
+            outs[bool(flag)] = (final, load_encoder(train_root / f"par{len(flag)}")[0],
+                                mel_power.launches["mel_power_ct"])
+    (f0, e0, l0), (f1, e1, l1) = outs[False], outs[True]
+    same = f0 == f1 and all(torch.equal(e0[k], e1[k]) for k in e0)
+    log(f"[parallel] train-vae 4 steps with and without --data-parallel (one card, deterministic cuDNN): final "
+        f"{f1} vs {f0}, artifacts bitwise {same}; mel_power_ct {l1} / {l0}")
+    if not same or l1 != 4:
+        raise AssertionError("train-vae --data-parallel on one card differs from the run without the flag")
+    launches += l1
+
+    # 5. the CLIs over the shards on the fit phase's project
+    common = ["--config", str(cfg_path), "--encoder", str(enc_dir), "--io-threads", "8", "--batch-size", "64"]
+    cfgs, grids, cli_launches = {}, {}, {}
+    pmesh.set_default_devices(shards)
+    try:
+        with contextlib.chdir(fit_root):
+            for flag in ([], ["--data-parallel", "--allow-init-encoder"]):
+                buf = io.StringIO()
+                reset_launches()
+                with contextlib.redirect_stdout(buf):
+                    fit_radial_cli.main(["--root", "chunks", "--q-in", "0.95", "--q-out", "0.01", *common, *flag])
+                    cfgs[bool(flag)] = read_radial(load_config(cfg_path))
+                    run_qout_grid.main(["--train-root", "chunks", "--val-root", "val", "--grid-root",
+                                        f"grid_par{len(flag)}", "--q-out-grid", "0.10", "0.20", "--device-sweep",
+                                        "--q-in-grid", "0.90", "0.95", *common, *flag[:1]])
+                cli_launches[bool(flag)] = mel_power.launches["mel_power_ct"]
+                if flag and "device sweep sharded over 4 shards" not in buf.getvalue():
+                    raise AssertionError("run-qout-grid --data-parallel did not shard its device sweep")
+                with open(fit_root / f"grid_par{len(flag)}" / "grid_metrics.csv", newline="") as f:
+                    grids[bool(flag)] = list(csv.DictReader(f))
+    finally:
+        pmesh.set_default_devices(None)
+    (_, c0, th0, _), (_, c1, th1, _) = cfgs[False], cfgs[True]
+    rel, cen = float(np.abs(th1 / th0 - 1).max()), row_rel_err(c1, c0)
+    # the padded sweep divides by the valid count where the unpadded one
+    # multiplies by its f32 reciprocal: a last-bit difference, which the
+    # reference's own test allows (tests/test_parallel.py:361, atol 1e-7);
+    # a decision that moved would move a rate by 1/192
+    g0, g1 = (np.array([[float(v) for v in row.values()] for row in grids[k]]) for k in (False, True))
+    grid_err = float(np.abs(g1 - g0).max()) if g0.shape == g1.shape else float("inf")
+    log(f"[parallel] fit-radial with and without --data-parallel --allow-init-encoder over {PAR_SHARDS} shards: "
+        f"thresholds rel {rel:.3e}, centroids {cen:.3e} (gate {FIT_RTOL}); run-qout-grid --device-sweep "
+        f"({len(grids[True])} points): grid metrics max|diff| {grid_err:.3e} (atol 1e-7); mel_power_ct "
+        f"{cli_launches[True]} with the flag, {cli_launches[False]} without")
+    if not (rel <= FIT_RTOL and cen <= FIT_RTOL and grid_err <= 1e-7 and cli_launches[True] > 0):
+        raise AssertionError(f"the CLIs' numbers moved under --data-parallel: {rel}, {cen}, {grid_err}; "
+                             f"launches {cli_launches}")
+    launches += cli_launches[True]  # the flagged runs alone: the parallel path's own
+
+    log("[times] parallel path (host clock, synchronized: encode_paths one pass after a warm-up, the fits the "
+        "fastest of 5, sharded_quantile and the sort of 4, the train steps of 5 after the gated one; " + smi + "): "
+        + "; ".join(
+        f"{k} " + (f"{v[0]:.2f} / {v[1]:.2f}" if isinstance(v, tuple) else f"{v:.1f}") for k, v in times.items()))
+    return {"launches": launches, "times": times}
+
+
 def phase_study_times(rng) -> dict:
     """-> {kernel: times} of the split kernel, at the shapes of rows 1 and 2."""
     return {
@@ -2479,13 +2841,14 @@ def main() -> None:
         checkpoint(f"tables uploaded again behind {mb} MB held", shift_mb=mb)
     if args.dense_checkpoints is not None:
         dense_strides()
-    with tempfile.TemporaryDirectory() as tmp:  # the project both phases share
-        fit = phase_fit_path(args.seed, np.random.default_rng([args.seed, 6]), Path(tmp))
-        evaluation = phase_eval_path(args.seed, Path(tmp))
-    with tempfile.TemporaryDirectory() as tmp:
-        training = phase_train_path(args.seed, Path(tmp))
-    with tempfile.TemporaryDirectory() as tmp:
-        int8 = phase_int8_path(args.seed, Path(tmp))
+    with tempfile.TemporaryDirectory() as fit_root, tempfile.TemporaryDirectory() as train_root:
+        # the fit phase's project serves the evaluation and parallel phases, the training phase's tree the latter
+        fit = phase_fit_path(args.seed, np.random.default_rng([args.seed, 6]), Path(fit_root))
+        evaluation = phase_eval_path(args.seed, Path(fit_root))
+        training = phase_train_path(args.seed, Path(train_root))
+        with tempfile.TemporaryDirectory() as tmp:
+            int8 = phase_int8_path(args.seed, Path(tmp))
+        parallel = phase_parallel_path(args.seed, Path(fit_root), fit, Path(train_root))
     study_rng = np.random.default_rng([args.seed, 3])
     errors.update(phase_kernel_vs_plain(STUDY_CASES, study_rng))
     launches.update(phase_study_path())
@@ -2501,6 +2864,7 @@ def main() -> None:
             **({"launches_fit_path": fit["launches"]} if name == "mel_power_ct" else {}),
             **({"launches_train_path": training["launches"][name]} if name in training["launches"] else {}),
             "launches_eval_path": evaluation["launches"][name],
+            **({"launches_parallel_path": parallel["launches"]} if name == "mel_power_ct" else {}),
         })
     for name, (source, replaces) in INT8_KERNELS.items():
         layer = INT8_TIMED_CONV if name == "int8_conv" else "Dense_0"
@@ -2527,7 +2891,8 @@ def main() -> None:
         + f"{int8['times']['encoder ms']['int8']:.3f} ms a batch of {TIMING_B} (f32 "
         + f"{int8['times']['encoder ms']['float32']:.3f}, bf16 {int8['times']['encoder ms']['bfloat16']:.3f}), "
         + "encode_array " + ", ".join(f"{k} {v:.1f}" for k, v in int8["times"]["chunks_per_s"].items())
-        + " chunks/s")
+        + " chunks/s; parallel path " + ", ".join(f"{k} {v:.1f}" for k, v in parallel["times"].items()
+                                                  if k.startswith("encode_paths")))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

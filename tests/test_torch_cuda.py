@@ -695,3 +695,75 @@ def test_quantized_session_on_card_matches_cpu(card):
     alone = s.encode_array(y[2:3])
     mixed = s.encode_array(np.concatenate([y[2:3], loud]))
     np.testing.assert_allclose(mixed[0], alone[0], atol=1e-5, rtol=0)
+
+
+def test_parallel_path_on_card_matches_single(card):
+    """The parallel slice over 4 data shards that repeat the card: the
+    data-parallel session (pinned slots sent a shard slice at a time) against
+    the single session (parity f32: rtol 5e-4 / atol 2e-5; the mel kernel
+    launched once a shard), the sharded fits and sharded_quantile against the
+    single-device ones on the card, and two sharded train steps over 2 data
+    x 2 model shards against the unsharded steps, as the JAX suite sets them
+    (lr 0 at the warm-up step, then 1e-3): the loss and the gradients,
+    through AdamW's first moment, at each step, then the parameters."""
+    from anuraxla_torch.detect.gaussian_map import fit_map
+    from anuraxla_torch.detect.radial import fit_radial
+    from anuraxla_torch.models.train import TrainConfig, create_train_state, make_train_step
+    from anuraxla_torch.models.vae import VAEConfig
+    from anuraxla_torch.ops.quantiles import masked_quantile
+    from anuraxla_torch.parallel import mesh as pmesh
+    from anuraxla_torch.parallel.fit import fit_map_sharded, fit_radial_sharded, sharded_quantile
+    from anuraxla_torch.parallel.train_sharded import make_sharded_train_step, shard_state
+
+    cfg = DEFAULT_MEL.replace(duration=1.0)
+    y = _rows(cfg, 10, seed=31)
+    kw = dict(mel=cfg, device=card, init_seed=3, normalize_on_device=True, pre_padded_host=True)
+    pmesh.set_default_devices(["cuda:0"] * 4)
+    try:
+        s1 = EncoderSession(**kw, batch_size=8).load()
+        s4 = EncoderSession(**kw, batch_size=6, data_parallel=True).load()
+        assert s4.batch_size == 8 and s4._mesh.shape == {"data": 4, "model": 1}
+        n0 = _launches()["mel_power_ct"]
+        z4 = s4.encode_array(y)  # 10 rows: padded to 12
+        assert _launches()["mel_power_ct"] == n0 + 4
+        np.testing.assert_allclose(z4, s1.encode_array(y), rtol=5e-4, atol=2e-5)
+        mesh = pmesh.make_mesh(device="cuda")
+    finally:
+        pmesh.set_default_devices(None)
+
+    rng = np.random.default_rng(4)
+    Z = (rng.standard_normal((3, 41, 16)) + 3 * np.arange(3)[:, None, None]).astype(np.float32)
+    mask = np.ones((3, 41), bool)
+    mask[1, 30:] = False
+    Zc, mc = torch.from_numpy(Z).to(card), torch.from_numpy(mask).to(card)
+    a, b = fit_radial(Zc, mc, 0.9, 0.2), fit_radial_sharded(Z, mask, 0.9, 0.2, mesh=mesh)
+    for name in ("centroids", "rk", "rk_in", "rk_out"):
+        torch.testing.assert_close(getattr(b, name), getattr(a, name), rtol=1e-5, atol=1e-6)
+    kw = dict(cov_type="qda", cov_structure="diag", shrink=0.1, tau_q=0.05)
+    a, b = fit_map(Zc, mc, **kw), fit_map_sharded(Z, mask, mesh=mesh, **kw)
+    for name in ("means", "logdets", "tau"):
+        torch.testing.assert_close(getattr(b, name), getattr(a, name), rtol=2e-4, atol=2e-5)
+    d = torch.rand((2, 5000), device=card, generator=torch.Generator(device=card).manual_seed(0))
+    m = d > 0.05
+    torch.testing.assert_close(sharded_quantile(d, m, 0.37, mesh=mesh), masked_quantile(d, m, 0.37),
+                               rtol=3e-7, atol=0.0)
+
+    vcfg = VAEConfig(latent_dim=16, widths=(8, 128), dense_width=256, groups=4, input_hw=(16, 16))
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, beta=0.1, kl_delay_steps=0, kl_warmup_steps=0)
+    x = torch.from_numpy(rng.standard_normal((8, 16, 16, 1)).astype(np.float32)).to(card)
+    _, plain = create_train_state(vcfg, tc, device=card)
+    _, state = create_train_state(vcfg, tc, device=card)
+    mesh = pmesh.make_mesh(devices=["cuda:0"] * 4, model_axis=2)
+    ss, _ = shard_state(state, mesh)
+    plain_step, sharded_step = make_train_step(tc.beta), make_sharded_train_step(tc.beta, mesh)
+    pa, pb = dict(plain.model.named_parameters()), dict(ss.state.model.named_parameters())
+    for step in range(2):  # the second step's gradients come from the refreshed replicas
+        eps = torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32)).to(card)
+        plain, pm = plain_step(plain, x, eps)
+        ss, sm = sharded_step(ss, x, eps)
+        torch.testing.assert_close(sm["loss"], pm["loss"], rtol=1e-4, atol=0.0)
+        for k in pa:
+            ma, mb = plain.optimizer.state[pa[k]]["exp_avg"], ss.state.optimizer.state[pb[k]]["exp_avg"]
+            assert float((mb - ma).abs().max()) <= 1e-4 * float(ma.abs().max()), (step, k)
+    for (name, p), q in zip(plain.model.state_dict().items(), ss.state.model.state_dict().values()):
+        torch.testing.assert_close(q, p, rtol=2e-3, atol=2e-4, msg=name)

@@ -104,7 +104,7 @@ def test_decode_into_host_ring_matches_reference(wavs):
     for s, want in ((sess, ref.audio), (noisy, jn._inject_noise(ref.audio, 0, len(wavs)))):
         got, oks = [], []
         for batch, n_valid in s.decoded_batches(wavs):
-            assert s._rings[torch.float32].holds(batch.audio) and batch.audio.shape == (4, layout[0])
+            assert s._rings[torch.float32].slot_of(batch.audio) is not None and batch.audio.shape == (4, layout[0])
             assert not batch.audio[n_valid:].any()  # the last batch's spare rows
             got.append(batch.audio[:n_valid].copy())
             oks += batch.ok[:n_valid].tolist()
@@ -118,9 +118,10 @@ def test_host_ring_hands_out_slots_in_turn():
     views = [ring.claim() for _ in range(4)]
     assert views[3] is views[0] and len({id(v) for v in views[:3]}) == 3
     views[1][...] = 7
-    t = ring.send(views[1])
-    assert t.dtype == torch.int16 and int(t.sum()) == 70 and ring.holds(views[1])
-    assert not ring.holds(views[1].copy())
+    t = ring.send(ring.slot_of(views[1]))
+    assert t.dtype == torch.int16 and int(t.sum()) == 70 and ring.slot_of(views[1]) == 1
+    assert int(ring.send(1, 1, 2).sum()) == 35
+    assert ring.slot_of(views[1].copy()) is None
 
 
 def test_to_pcm16_is_the_reference_conversion():

@@ -217,7 +217,9 @@ def test_port_imports_no_jax():
             "anuraxla_torch/models/train.py", "anuraxla_torch/cli/train_vae.py", "anuraxla_torch/cli/make_synth_data.py",
             "anuraxla_torch/cli/print_latents.py", "anuraxla_torch/models/quant.py", "anuraxla_torch/ops/int8.py",
             "anuraxla_torch/models/ingest.py", "anuraxla_torch/models/hydra_ingest.py",
-            "anuraxla_torch/cli/ingest_encoder.py", "anuraxla_torch/cli/ingest_decoder.py"} <= covered
+            "anuraxla_torch/cli/ingest_encoder.py", "anuraxla_torch/cli/ingest_decoder.py",
+            "anuraxla_torch/parallel/mesh.py", "anuraxla_torch/parallel/encode.py", "anuraxla_torch/parallel/fit.py",
+            "anuraxla_torch/parallel/train_sharded.py", "anuraxla_torch/parallel/multihost.py"} <= covered
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -332,9 +332,9 @@ def test_resolve_tier_knobs_vs_reference(tier, backend):
             want["frontend_backend"] = "cuda"
         assert kt == want
         st, sj = t_common.session_kwargs(at), j_common.session_kwargs(aj)
-        assert set(sj) - set(st) == {"data_parallel"}  # a later slice of the port
-        for k in ("batch_size", "num_threads", "parity", "transfer_int16", "quantize", "encoder_dtype",
-                  "pre_padded_host"):
+        assert set(sj) == set(st)
+        for k in ("batch_size", "num_threads", "parity", "transfer_int16", "data_parallel", "quantize",
+                  "encoder_dtype", "pre_padded_host"):
             assert st[k] == sj[k]
         assert st["backend"] == want["frontend_backend"]
         EncoderSession(mel=DEFAULT_MEL, device="cpu", **st)  # every key is a session field
@@ -431,4 +431,4 @@ def test_cli_serving_tiers(tmp_path, capsys):
     args = t_cli.build_parser().parse_args(["--wav", "x.wav", "--serving-tier", "fast"])
     assert t_common.session_kwargs(args) == dict(
         batch_size=1, num_threads=16, parity=False, backend="cuda-bf16", transfer_int16=False,
-        quantize=False, encoder_dtype="bfloat16", pre_padded_host=False)
+        data_parallel=False, quantize=False, encoder_dtype="bfloat16", pre_padded_host=False)

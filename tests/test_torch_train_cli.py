@@ -211,18 +211,31 @@ def test_train_vae_refusals(tree, project, argv, match):
         t_train_cli.main(["--root", str(tree), "--steps", "1", *TRAIN, *argv])
 
 
-def test_train_vae_devices(tree, project, monkeypatch, capsys):
-    """Defaults to the card; --data-parallel trains on the one device it is
-    given and refuses several cards rather than train on one of them."""
+def test_train_vae_devices(tree, project, capsys):
+    """Defaults to the card; --data-parallel over one device is the
+    single-device loop, over several shards the sharded loop (its log names
+    the mesh, as the reference's does), where --resume and --init-from are
+    refused with the reference's messages."""
+    from anuraxla_torch.parallel import mesh as t_mesh
+
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cuda'"):
             t_train_cli.main(["--root", str(tree), "--steps", "1"])
-    t_train_cli.main(["--root", str(tree), "--steps", "1", "--data-parallel", *TRAIN])
-    assert "🏁 1 steps" in capsys.readouterr().out
-    monkeypatch.setattr(t_train_cli, "resolve_device", lambda device: torch.device("cuda"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="ROADMAP A.11"):
-        t_train_cli.main(["--root", str(tree), "--steps", "1", "--data-parallel"])
+    t_train_cli.main(["--root", str(tree), "--steps", "1", "--data-parallel", "--ckpt-dir", "ck", *TRAIN])
+    out = capsys.readouterr().out
+    assert "🏁 1 steps" in out and "step 0: loss=" in out
+    j_ckpt.save_encoder(project / "enc", j_vae.VAEConfig(**NARROW), j_vae.init_encoder(j_vae.VAEConfig(**NARROW))[1])
+    t_mesh.set_default_devices(["cpu"] * 2)
+    try:
+        t_train_cli.main(["--root", str(tree), "--steps", "1", "--data-parallel", *TRAIN])
+        out = capsys.readouterr().out
+        assert "step 0 [2dp x 1tp]: loss=" in out and "🏁 1 steps" in out
+        for argv, match in ((["--resume", "--ckpt-dir", "ck"], "--resume with --data-parallel is not supported"),
+                            (["--init-from", "enc"], "--init-from with --data-parallel is not supported")):
+            with pytest.raises(SystemExit, match=match):
+                t_train_cli.main(["--root", str(tree), "--steps", "1", "--data-parallel", *TRAIN, *argv])
+    finally:
+        t_mesh.set_default_devices(None)
 
 
 @pytest.mark.parametrize("flags", [[], ["--n", "3"], ["--all", "--jsonl"], ["--show-cols", "--precision", "3"]],
