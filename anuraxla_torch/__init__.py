@@ -16,10 +16,18 @@ __all__ = ["DEFAULT_MEL", "MelConfig", "resolve_device"]
 
 def resolve_device(device="cuda"):
     """``torch.device`` for ``device``; raises when CUDA is asked for and no
-    card is visible — the port never continues quietly on the CPU."""
+    card is visible, and for anything but a CUDA or CPU device (the
+    reference's ``auto`` included) — the port never continues quietly on the
+    CPU."""
     import torch
 
-    dev = torch.device(device)
+    try:
+        dev = torch.device(device)
+    except RuntimeError:
+        dev = None
+    if dev is None or dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device={device!r}: the port runs on 'cuda' (the card) or 'cpu' (the kernels' plain "
+                         "versions); there is no automatic choice")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device='cuda' requested but torch.cuda.is_available() is False; "

@@ -124,7 +124,23 @@ failure exits non-zero):
    ``fit-radial --data-parallel --allow-init-encoder`` and ``run-qout-grid
    --device-sweep --data-parallel`` over the 4 shards against the same without
    the flag;
-10. the kernel study, after every serving phase so that those run as they did
+10. the pipeline driver (``anuraxla_torch/scripts/``) at full width in a
+   project of its own, as the Makefile's ``e2e-demo`` recipe runs the
+   reference's: ``make-synth-data --per-species 48`` (4 species x 48 WAVs a
+   split), ``bash -x run_full_pipeline.sh`` with ``TRAIN_STEPS=50`` (normalize,
+   train-vae at B = 64, fit-map --preset small-n, encode-wav --jsonl on three
+   splits, run-qout-grid over 4 q_out points with --analyze, both folder
+   benchmarks), each step timed by the line its start traces. Every artifact
+   the reference's driver documents must be there, the species-tree caches
+   must name the card's arithmetic, the JSONL's val and test latents equal
+   ``encode_paths`` in this process (rtol 5e-4 / atol 2e-5; bitwise
+   reported), benchmark-folder's decisions ``radial_decide`` on the CPU from
+   them; benchmark-folder again in process with the counts from 0
+   (``mel_power_ct`` only). Then ``drive_fast_tier.sh`` in that project
+   (``decision_diff``'s line parsed); ``drive_5db_floor.sh`` would add as
+   much again: ``perf_logs/pr12/scripts/phase10.py`` runs the phase with both
+   drives (``noise_distance``'s table parsed too);
+11. the kernel study, after every serving phase so that those run as they did
    before it existed: hold the split-bf16 tensor-core kernel
    (``fused_dots=True``: a TMA ring, wgmma) to its plain version, exact and
    bf16, at ``DEFAULT_MEL`` pre-padded, at the fast tier's frame range, at hop
@@ -138,10 +154,11 @@ failure exits non-zero):
    each module of ``anuraxla_torch.probes`` and of ``anuraxla_torch.bench``
    (the split kernel's counts must move there); time the split kernel, with
    the L2 bytes of its table stream;
-11. print the kernels line (``mel_power_ct``'s also with its launches on the
-   fit path, the parallel path, it and ``mel_power_ct_bf16`` on the training
-   path; every kernel's on the evaluation path), the card's name and power
-   limit, and last the device line.
+12. print the kernels line (``mel_power_ct``'s also with its launches on the
+   fit path, the parallel path, the pipeline path, it and
+   ``mel_power_ct_bf16`` on the training path; every kernel's on the
+   evaluation path), the card's name and power limit, and last the device
+   line.
 
 ``--dense-checkpoints`` is a diagnostic: it also times the dense kernel between
 the phases and, last, with its fragment tables uploaded again at other
@@ -2791,6 +2808,249 @@ def phase_parallel_path(seed: int, fit_root: Path, fit: dict, train_root: Path) 
     return {"launches": launches, "times": times}
 
 
+PIPELINE_FILES = 48  # make-synth-data --per-species, the scale of the Makefile's e2e-demo recipe
+PIPELINE_TRAIN_STEPS = 50  # TRAIN_STEPS of that recipe
+PIPELINE_GRID = ("0.10", "0.15", "0.20", "0.25")  # _env.sh's QOUT_GRID default
+# the drives that carry a ported diagnostic. This script runs the first: both would add ~180 s to a
+# phase of ~130 s (85 and 93 s on the card, perf_logs/pr12/run1_phase10.log);
+# perf_logs/pr12/scripts/phase10.py runs the phase with both
+PIPELINE_DRIVES = ("drive_fast_tier.sh", "drive_5db_floor.sh")
+# the driver's steps, by the line bash -x traces as each starts (the driver's own commands, one '+')
+PIPELINE_STEPS = (("01 normalize", "+ bash */01_normalize_chunks.sh"), ("02 train-vae", "+ bash */02_train_vae.sh"),
+                  ("fit-map", "+ python -m anuraxla_torch fit-map *"),
+                  ("03 encode-wav", "+ bash */03_encode_latents.sh"),
+                  ("04 run-qout-grid", "+ bash */04_calibrate_qout_grid.sh"),
+                  ("05 benchmarks", "+ bash */05_make_plots.sh"))
+
+
+def run_script(argv: list, cwd: Path, env: dict, timeout: float = 900) -> tuple:
+    """Run ``argv`` to its end, each line of its output and errors stamped
+    with the seconds since the start -> (exit code, [(seconds, line)], wall s)."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, lines, time.perf_counter() - t0
+
+
+def phase_pipeline_path(seed: int, root: Path, drives=()) -> dict:
+    """The port's pipeline driver at full width (``DEFAULT_MEL``, the default
+    ``VAEConfig``) in a project of its own, as the Makefile's ``e2e-demo``
+    recipe runs the reference's: ``python -m anuraxla_torch make-synth-data
+    --per-species 48`` (4 species x 48 WAVs in each of train, val and test),
+    then ``bash -x anuraxla_torch/scripts/run_full_pipeline.sh`` with
+    ``TRAIN_STEPS=50`` and every other variable at its default (normalize,
+    train-vae at B = 64, fit-map --preset small-n, encode-wav --jsonl on three
+    splits, run-qout-grid over 4 q_out points with --analyze, benchmark-folder
+    and benchmark-folder-map), each step timed by the line its start traces;
+    then ``drives`` (of ``PIPELINE_DRIVES``) in that project.
+    Gates: the driver exits 0 and leaves every artifact the reference's
+    driver documents; the species-tree caches name the card's arithmetic,
+    not ``cpuplain``; the val and test latents of the JSONL equal
+    ``EncoderSession.encode_paths`` in this process with the trained
+    artifact and the flags of ``encode-wav`` (rtol 5e-4 / atol 2e-5; bitwise
+    expected, reported); benchmark-folder's decisions equal ``radial_decide``
+    on the CPU from those latents and the fitted config.json;
+    ``benchmark-folder`` run again in this process with the launch counts set
+    to 0 just before and read just after (``mel_power_ct`` moves, no other
+    mel kernel does); each drive exits 0, ``decision_diff``'s line parses and
+    ``noise_distance``'s table has a row of finite numbers for each species.
+    -> {"launches": mel_power_ct's count on the rerun, "times": {...}}."""
+    import csv
+    import fnmatch
+    import os
+    import shutil
+
+    from anuraxla_torch.cli import benchmark_folder, encode_wav
+    from anuraxla_torch.cli.common import mel_from_args, session_kwargs
+    from anuraxla_torch.config import load_config, priority_ranks, read_radial
+    from anuraxla_torch.constants import SPECIES
+    from anuraxla_torch.detect.radial import radial_decide
+    from anuraxla_torch.ops.mel_kernel import mel_power, reset_launches
+    from anuraxla_torch.pipeline.dataset import scan_species_tree
+    from anuraxla_torch.pipeline.session import EncoderSession
+    from anuraxla_torch.probes.common import card_line
+
+    smi = card_line()
+    here = Path(__file__).resolve().parent
+    scripts = here / "anuraxla_torch" / "scripts"
+    (root / "tmp").mkdir()
+    driver_vars = {"DEVICE_DEFAULT", "TRAIN_DEVICE", "QOUT_GRID", "MAX_PER_CLASS_DEFAULT", "TRAIN_STEPS",
+                   "TRAIN_BATCH", "PROJECT_ROOT", "CHUNKS_ROOT", "TRAIN_CHUNKS", "VAL_CHUNKS", "TEST_CHUNKS",
+                   "MODELS_DIR", "OUTPUTS_DIR", "ENCODER_DIR", "CONFIG_JSON", "GRID_ROOT", "MAP_FIT_ARGS"}
+    env = {k: v for k, v in os.environ.items() if k not in driver_vars}
+    env.update(PYTHONPATH=os.pathsep.join(filter(None, [str(here), env.get("PYTHONPATH")])), PYTHONUNBUFFERED="1",
+               TMPDIR=str(root / "tmp"))
+    times = {}
+
+    def check(rc: int, lines: list, what: str) -> str:
+        out = "\n".join(line for _, line in lines)
+        if rc != 0:
+            raise AssertionError(f"pipeline path: {what} exited {rc}:\n" + "\n".join(out.splitlines()[-40:]))
+        return out
+
+    # the Makefile's e2e-demo recipe
+    (root / "models").mkdir()
+    rc, lines, times["make-synth-data s"] = run_script(
+        [sys.executable, "-m", "anuraxla_torch", "make-synth-data", "--root", "latent_space_exploration",
+         "--per-species", str(PIPELINE_FILES), "--seed", str(seed)], root, env)
+    check(rc, lines, "make-synth-data")
+    shutil.copy(root / "latent_space_exploration" / "config.json", root / "config.json")
+    rc, lines, wall = run_script(["bash", "-x", str(scripts / "run_full_pipeline.sh")], root,
+                                 {**env, "TRAIN_STEPS": str(PIPELINE_TRAIN_STEPS)})
+    out = check(rc, lines, "run_full_pipeline.sh")
+    (root / "driver.log").write_text(out + "\n")
+    starts = [(name, t) for t, line in lines for name, mark in PIPELINE_STEPS if fnmatch.fnmatchcase(line, mark)]
+    if [n for n, _ in starts] != [n for n, _ in PIPELINE_STEPS]:
+        raise AssertionError(f"pipeline path: the driver ran the steps {[n for n, _ in starts]}")
+    times["driver s"] = wall
+    times["preflight s"] = starts[0][1]
+    for (name, t), nxt in zip(starts, [t for _, t in starts[1:]] + [wall]):
+        times[f"{name} s"] = nxt - t
+    m = re.search(r"🏁 (\d+) steps in ([\d.]+)s \(([\d.]+) examples/s\)", out)
+    if not m or int(m.group(1)) != PIPELINE_TRAIN_STEPS:
+        raise AssertionError("pipeline path: train-vae printed no rate for its steps")
+    times["train-vae examples/s"] = float(m.group(3))
+    log(f"[pipeline] make-synth-data --per-species {PIPELINE_FILES} + run_full_pipeline.sh (TRAIN_STEPS="
+        f"{PIPELINE_TRAIN_STEPS}, every other variable at its default) exit 0 in {wall:.2f} s; "
+        + ", ".join(f"{n} {times[f'{n} s']:.2f} s" for n, _ in (("preflight", 0), *PIPELINE_STEPS))
+        + f"; train-vae {m.group(1)} steps in {m.group(2)} s = {m.group(3)} examples/s (decode, transfer and "
+        f"start-up included)")
+
+    # every artifact the reference's driver documents
+    lse, outputs, cfg_path = root / "latent_space_exploration", root / "outputs", root / "config.json"
+    missing = [p for p in (root / "models" / "anuraxla_vae_encoder_v0" / "encoder.msgpack",
+                           root / "models" / "anuraxla_vae_encoder_v0" / "encoder.json") if not p.is_file()]
+    cfg = load_config(cfg_path)
+    if not {"radial_detector", "map_detector"} <= set(cfg):
+        missing.append("config.json: radial_detector + map_detector")
+    jsonl = {}
+    for split in ("train", "val", "test"):
+        wavs = sorted(str(p) for wavs in scan_species_tree(lse / f"{split}_chunks_norm").values() for p in wavs)
+        rows = [json.loads(line) for line in (outputs / "latents" / f"{split}_latents.jsonl").read_text().splitlines()]
+        jsonl[split] = {r["file"]: r["vector"] for r in rows}
+        if len(wavs) != len(SPECIES) * PIPELINE_FILES or sorted(jsonl[split]) != wavs or len(rows) != len(wavs):
+            missing.append(f"{split}_latents.jsonl: {len(rows)} rows for {len(wavs)} WAVs")
+    grids = sorted(outputs.glob("qout_grid_*"))
+    if len(grids) != 1:
+        raise AssertionError(f"pipeline path: grid roots {grids}")
+    for q in PIPELINE_GRID:
+        for f in ("run.log", "summary.txt", "results.csv", "config_used.json", "config_snapshot.json"):
+            if not (grids[0] / f"qout_{q}" / f).is_file():
+                missing.append(f"qout_{q}/{f}")
+    if not (grids[0] / "spearman_table.csv").is_file():
+        missing.append("spearman_table.csv")
+    for name in ("detection_benchmark", "detection_benchmark_map"):
+        for f in ("results.csv", "summary.txt"):
+            if not (outputs / name / f).is_file():
+                missing.append(f"{name}/{f}")
+    if missing:
+        raise AssertionError(f"pipeline path: artifacts missing or short: {missing}")
+    log(f"[pipeline] artifacts: encoder artifact, config.json with both detectors, 3 JSONL x "
+        f"{len(SPECIES) * PIPELINE_FILES} rows, {len(PIPELINE_GRID)} grid points + spearman_table.csv, both "
+        f"benchmarks' results.csv + summary.txt")
+
+    # the caches name the arithmetic that ran in the driver's processes
+    caches = sorted((root / "cache_npz").glob("Z_train_chunks_norm_*.npz"))
+    fps = {c.name: str(np.load(c)["mel_fp"]) for c in caches}
+    if len(caches) != len(SPECIES) or not all("_torch-cuda_" in fp and "cpuplain" not in fp for fp in fps.values()):
+        raise AssertionError(f"pipeline path: the caches do not name the card's arithmetic: {fps}")
+    arithmetic = sorted({fp.split("_torch-")[1].split("_e")[0] for fp in fps.values()})
+    log(f"[pipeline] species-tree caches {', '.join(fps)}: arithmetic {arithmetic}")
+
+    # the JSONL latents against the session in this process: the trained artifact, encode-wav's flags
+    args = encode_wav.build_parser().parse_args(["--root", ".", "--jsonl", "--device", "cuda", "--duration", "5.0"])
+    sess = EncoderSession(mel=mel_from_args(args, duration=args.duration), encoder_dir=None, project_root=root,
+                          device="cuda", **session_kwargs(args)).load()
+    lat = {}
+    for split in ("val", "test"):
+        Z, files, n_bitwise, err = [], [], 0, 0.0
+        for sp, wavs in scan_species_tree(lse / f"{split}_chunks_norm").items():
+            Zs, ok, _ = sess.encode_paths(wavs)
+            if not ok.all():
+                raise AssertionError(f"pipeline path: {split}/{sp}: decode failed in process")
+            for w, z in zip(wavs, Zs):
+                want = np.asarray(jsonl[split][str(w)], np.float32)
+                n_bitwise += [round(float(v), args.precision) for v in z] == jsonl[split][str(w)]
+                if not np.allclose(z, want, rtol=5e-4, atol=2e-5):
+                    raise AssertionError(f"pipeline path: {split} latent of {w.name} is not the JSONL's")
+                err = max(err, float(np.abs(z - want).max()))
+            Z.append(Zs)
+            files += [str(w) for w in wavs]
+        lat[split] = (np.concatenate(Z), files)
+        log(f"[pipeline] {split} latents: JSONL vs encode_paths in process on the card, {len(files)} rows: "
+            f"{n_bitwise} bitwise at the JSONL's {args.precision} decimals, max|diff| {err:.3e} "
+            f"(rtol 5e-4 / atol 2e-5)")
+
+    # benchmark-folder's decisions from those latents and the fitted config.json, on the CPU
+    species, cents, thr, _ = read_radial(cfg)
+    Z, files = lat["test"]
+    det, win, best = radial_decide(torch.from_numpy(Z), *(torch.from_numpy(a) for a in
+                                                         (cents, thr, priority_ranks(species))))
+    with open(outputs / "detection_benchmark" / "results.csv") as fh:
+        rows = {r["file"]: r for r in csv.DictReader(fh)}
+    differ = [f for i, f in enumerate(files)
+              if (rows[f]["pred_species"], rows[f]["detected"])
+              != (species[int(win[i])] if bool(det[i]) else "NO_DETECT", str(bool(det[i])))]
+    dist = max(abs(float(rows[f]["best_distance"]) - float(best[i])) / max(float(best[i]), 1e-30)
+               for i, f in enumerate(files))
+    if differ or sorted(rows) != sorted(files) or dist > 1e-5:
+        raise AssertionError(f"pipeline path: benchmark-folder vs radial_decide on the CPU: {len(differ)} "
+                             f"decisions differ ({differ[:3]}), distances rel {dist:.3e}")
+    log(f"[pipeline] benchmark-folder on test_chunks_norm: {len(files)} decisions equal radial_decide on the CPU "
+        f"from the in-process latents and config.json ({int(det.sum())} detected); distances rel {dist:.3e}")
+
+    # benchmark-folder again in this process, the launch counts set to 0 just before
+    argv = ["--root", str(lse / "test_chunks_norm"), "--config", str(cfg_path), "--device", "cuda",
+            "--out-dir", str(outputs / "detection_benchmark_counted")]
+    with contextlib.chdir(root), contextlib.redirect_stdout(io.StringIO()):
+        reset_launches()
+        benchmark_folder.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(mel_power.launches)
+    with open(outputs / "detection_benchmark_counted" / "results.csv") as fh:
+        again = {r["file"]: (r["pred_species"], r["detected"]) for r in csv.DictReader(fh)}
+    if launches["mel_power_ct"] == 0 or any(v for k, v in launches.items() if k != "mel_power_ct") \
+            or again != {f: (r["pred_species"], r["detected"]) for f, r in rows.items()}:
+        raise AssertionError(f"pipeline path: benchmark-folder in process launched {launches}")
+    log(f"[pipeline] benchmark-folder in process, counts from 0: {launches} (the decisions the driver's)")
+
+    # the drives that carry a ported diagnostic, in the driven project
+    for drive in drives:
+        rc, lines, times[f"{drive} s"] = run_script(["bash", str(scripts / drive)], root, env)
+        out = check(rc, lines, drive)
+        (root / f"{drive}.log").write_text(out + "\n")
+        if drive == "drive_fast_tier.sh":
+            m = re.search(r"^decision equivalence: (\d+)/(\d+) identical \(([\d.]+)%\)$", out, re.M)
+            if not m or int(m.group(2)) != len(SPECIES) * PIPELINE_FILES:
+                raise AssertionError("pipeline path: decision_diff printed no equivalence line")
+            log(f"[pipeline] {drive}: exit 0 in {times[f'{drive} s']:.2f} s; balanced vs fast tier on val_chunks: "
+                f"{m.group(0)}; " + "; ".join(line.strip() for line in out.splitlines()
+                                              if line.startswith(("600", "14 dB:", "8 dB:"))))
+        else:
+            table = {}
+            for line in out.splitlines():
+                parts = line.split()
+                if len(parts) == 5 and parts[0] in SPECIES:
+                    table[parts[0]] = [float(v) for v in parts[1:]]
+            if sorted(table) != sorted(SPECIES) or not np.isfinite(list(table.values())).all():
+                raise AssertionError(f"pipeline path: noise_distance's table {table}")
+            log(f"[pipeline] {drive}: exit 0 in {times[f'{drive} s']:.2f} s; 5 dB distances (rk, d_own p50, p10, "
+                f"d_best-other p50): " + "; ".join(f"{sp} {v}" for sp, v in table.items()))
+    log("[times] pipeline path (host clock, wall seconds of each step and drive; "
+        f"{smi}): " + "; ".join(f"{k} {v:.2f}" for k, v in times.items()))
+    return {"launches": launches["mel_power_ct"], "times": times}
+
+
 def phase_study_times(rng) -> dict:
     """-> {kernel: times} of the split kernel, at the shapes of rows 1 and 2."""
     return {
@@ -2849,6 +3109,8 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             int8 = phase_int8_path(args.seed, Path(tmp))
         parallel = phase_parallel_path(args.seed, Path(fit_root), fit, Path(train_root))
+    with tempfile.TemporaryDirectory() as tmp:
+        pipeline = phase_pipeline_path(args.seed, Path(tmp), drives=PIPELINE_DRIVES[:1])
     study_rng = np.random.default_rng([args.seed, 3])
     errors.update(phase_kernel_vs_plain(STUDY_CASES, study_rng))
     launches.update(phase_study_path())
@@ -2865,6 +3127,7 @@ def main() -> None:
             **({"launches_train_path": training["launches"][name]} if name in training["launches"] else {}),
             "launches_eval_path": evaluation["launches"][name],
             **({"launches_parallel_path": parallel["launches"]} if name == "mel_power_ct" else {}),
+            **({"launches_pipeline_path": pipeline["launches"]} if name == "mel_power_ct" else {}),
         })
     for name, (source, replaces) in INT8_KERNELS.items():
         layer = INT8_TIMED_CONV if name == "int8_conv" else "Dense_0"
@@ -2892,7 +3155,10 @@ def main() -> None:
         + f"{int8['times']['encoder ms']['float32']:.3f}, bf16 {int8['times']['encoder ms']['bfloat16']:.3f}), "
         + "encode_array " + ", ".join(f"{k} {v:.1f}" for k, v in int8["times"]["chunks_per_s"].items())
         + " chunks/s; parallel path " + ", ".join(f"{k} {v:.1f}" for k, v in parallel["times"].items()
-                                                  if k.startswith("encode_paths")))
+                                                  if k.startswith("encode_paths"))
+        + f"; pipeline driver {pipeline['times']['driver s']:.1f} s (train-vae "
+        + f"{pipeline['times']['train-vae examples/s']:.1f} examples/s), {PIPELINE_DRIVES[0]} "
+        + f"{pipeline['times'][PIPELINE_DRIVES[0] + ' s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,8 @@ from anuraxla_torch import bench
 from anuraxla_torch.constants import DEFAULT_MEL
 from anuraxla_torch.models.vae import VAEConfig
 from anuraxla_torch.ops import mel_kernel as tk
-from anuraxla_torch.probes import common, kernel_ablation, kernel_variants, phase_variants, profile_stages
+from anuraxla_torch.probes import (cold_io, common, encoder_variants, kernel_ablation, kernel_variants, phase_variants,
+                                   profile_stages, train_step)
 
 # MelConfig(sr=48000, duration=1.0, n_mels=64, fmin=150, fmax=15000, hop 384, n_fft 2048, target_frames=96)
 SMALL = ["--device", "cpu", "--batch", "2", "--measure-s", "0", "--duration", "1.0", "--target-frames", "96"]
@@ -95,13 +96,59 @@ def test_profile_stages(capsys):
         assert set(r) == {"stage", "ms_per_batch", "chunks_per_s"} and r["ms_per_batch"] > 0
 
 
+def test_encoder_variants(capsys):
+    encoder_variants.main(SMALL)
+    head, *rows = _lines(capsys)
+    _check_header(head)
+    assert [r["variant"] for r in rows] == ["f32", "bf16", "f32-nonorm", "bf16-nonorm", "full-bf16enc"]
+    for r in rows:
+        assert r["ms_per_batch"] > 0 and np.isclose(r["chunks_per_s"], 2 / r["ms_per_batch"] * 1e3)
+    drift = {r["variant"]: r.get("max_rel_drift_vs_f32") for r in rows}
+    # the same seeded weights: bf16 against f32 within the bf16 trunk's cosine-0.99 class of error
+    assert drift["f32"] == 0.0 and 0 < drift["bf16"] < 5e-2
+    assert drift["f32-nonorm"] is drift["bf16-nonorm"] is None and "max_rel_drift_vs_f32" not in rows[-1]
+
+
+def test_train_step(capsys):
+    """Full width (the default ``VAEConfig``) on the CPU, B = 2, two timed
+    steps: the loss is finite and the keys are the reference's, with
+    ``first_step_s`` for its ``compile_s``."""
+    train_step.main(["--device", "cpu", "--batches", "2", "--steps", "2"])
+    head, *rows = _lines(capsys)
+    assert head["device"] == "cpu" and head["widths"] == [32, 64, 128, 256] and head["latent"] == 128
+    assert [r["batch"] for r in rows] == [2]
+    for r in rows:
+        assert set(r) == {"batch", "ms_per_step", "steps_per_s", "chunks_per_s", "first_step_s", "first_loss",
+                          "final_loss"}
+        assert r["ms_per_step"] > 0 and np.isclose(r["chunks_per_s"], r["batch"] * r["steps_per_s"])
+        assert np.isfinite([r["first_loss"], r["final_loss"]]).all() and r["first_step_s"] > 0
+
+
+def test_cold_io(tmp_path, capsys):
+    """Every leg on a few small files; each eviction leaves no page of the
+    first file cached (the files are written back first), and the native
+    decoder reads every file."""
+    cold_io.main(["--files", "4", "--seconds", "0.2", "--threads", "2", "--root", str(tmp_path)])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("# 4 files") and [ln.split(":")[0] for ln in lines[1:4]] == [
+        "cold buffered", "cold mmap", "cold odirect"]
+    rec = json.loads(lines[-1])
+    assert rec["files"] == 4 and len(list(tmp_path.glob("*.wav"))) == 4
+    for leg in ("buffered", "mmap"):
+        assert rec[f"cold_{leg}_mb_s"] > 0 and rec[f"cold_{leg}_resident_frac"] == 0.0
+    assert rec["cold_odirect_mb_s"] is None or rec["cold_odirect_mb_s"] > 0
+    assert rec["warm_decode_files_s"] > 0 and rec["cold_decode_files_s"] > 0
+    assert np.isclose(rec["cold_warm_ratio"], rec["cold_decode_files_s"] / rec["warm_decode_files_s"])
+
+
 def test_probes_default_to_the_card():
     """No ``--device``: the probes ask for the card and raise where there is none."""
     import torch
 
     if torch.cuda.is_available():
         pytest.skip("this check is for a host without a card")
-    for main in (kernel_variants.main, phase_variants.main, kernel_ablation.main, profile_stages.main, bench.main):
+    for main in (kernel_variants.main, phase_variants.main, kernel_ablation.main, profile_stages.main, bench.main,
+                 encoder_variants.main, train_step.main):
         with pytest.raises(RuntimeError, match="device='cuda'"):
             main(["--batch", "2"])
 

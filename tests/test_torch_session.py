@@ -7,6 +7,7 @@ msgpack or ``anuraxla``."""
 
 import ast
 import json
+import re
 from pathlib import Path
 
 import jax
@@ -219,8 +220,31 @@ def test_port_imports_no_jax():
             "anuraxla_torch/models/ingest.py", "anuraxla_torch/models/hydra_ingest.py",
             "anuraxla_torch/cli/ingest_encoder.py", "anuraxla_torch/cli/ingest_decoder.py",
             "anuraxla_torch/parallel/mesh.py", "anuraxla_torch/parallel/encode.py", "anuraxla_torch/parallel/fit.py",
-            "anuraxla_torch/parallel/train_sharded.py", "anuraxla_torch/parallel/multihost.py"} <= covered
+            "anuraxla_torch/parallel/train_sharded.py", "anuraxla_torch/parallel/multihost.py",
+            "anuraxla_torch/scripts/__init__.py", "anuraxla_torch/scripts/decision_diff.py",
+            "anuraxla_torch/scripts/noise_distance.py", "anuraxla_torch/probes/encoder_variants.py",
+            "anuraxla_torch/probes/train_step.py", "anuraxla_torch/probes/cold_io.py"} <= covered
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "msgpack", "anuraxla"), (f, mod)
+
+
+# a call of the JAX package from a shell script: its CLI, or an import in an inline Python block
+JAX_CALL = re.compile(r"python3? -m anuraxla(?!_torch)\b|^\s*import anuraxla(?!_torch)\b|^\s*from anuraxla[.\s]",
+                      re.M)
+
+
+def test_port_scripts_call_no_jax():
+    """The port's shell scripts run ``python -m anuraxla_torch`` only, and
+    their inline Python imports nothing of the JAX package; the same scan
+    finds the reference's calls in ``scripts/``."""
+    scripts = sorted((REPO / "anuraxla_torch" / "scripts").glob("*.sh"))
+    assert {p.name for p in scripts} >= {"_env.sh", "run_full_pipeline.sh", "01_normalize_chunks.sh",
+                                         "05_make_plots.sh", "drive_fast_tier.sh", "drive_5db_floor.sh"}
+    for f in scripts:
+        assert not JAX_CALL.findall(f.read_text()), (f.name, JAX_CALL.findall(f.read_text()))
+    assert "python -m anuraxla_torch" in (REPO / "anuraxla_torch" / "scripts" / "_env.sh").read_text()
+    ref = {p.name: JAX_CALL.findall(p.read_text()) for p in (REPO / "scripts").glob("*.sh")}
+    assert ref["_env.sh"] and ref["drive_fast_tier.sh"] and ref["drive_5db_floor.sh"]
+    assert any(m.strip().startswith("from anuraxla") for m in ref["run_full_pipeline.sh"])
