@@ -19,7 +19,14 @@ tree (numpy or tensors, with or without the outer ``"params"``). The
 quantized tree is a plain dict of tensors with the JAX tree's keys:
 ``{"conv": {name: {"wq", "sw", "bias"}}, "act_scale": {name: s}, "gn":
 {...}, "f32": {"head_mu", "head_logvar"}}``, ``wq`` in the reference's
-layouts (HWIO convs, [K, N] dense). Tensors are NHWC on an explicit device.
+layouts (HWIO convs, [K, N] dense). On the card each entry whose shape the
+kernel's ``wgmma`` path takes also holds ``"wq_packed"``
+(``ops.int8.pack_weight``, made once here); the top-level keys stay the
+JAX tree's. Tensors are NHWC on an explicit device.
+
+On the card the forward hands each conv and the dense its f32 input and
+``sx``: the kernel quantizes as it loads, to the codes ``_quant_x`` gives.
+On the CPU ``_quant_x`` runs first, as in the reference.
 
 Traps the port pins (``tests/test_torch_quant.py`` holds it to the JAX
 package): rounding is half to even (``torch.round``; the kernel's epilogue
@@ -39,7 +46,7 @@ import torch
 from anuraxla_torch import resolve_device
 from anuraxla_torch.models.convert import encoder_params_for_jax
 from anuraxla_torch.models.vae import VAEConfig, activation, same_pads
-from anuraxla_torch.ops.int8 import int8_conv, int8_dense, patches as _patches
+from anuraxla_torch.ops.int8 import int8_conv, int8_dense, pack_weight, patches as _patches, wgmma_tile
 from anuraxla_torch.utils.precision import exact_f32
 
 
@@ -140,6 +147,15 @@ def encoder_forward_f32(params, cfg: VAEConfig, x: torch.Tensor, *, collect: Opt
         return x @ p["head_mu"]["kernel"] + p["head_mu"]["bias"]
 
 
+def _entry(wq: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor) -> dict:
+    """A contraction's entry of the tree; on the card with the packed W of
+    the kernel's wgmma path where the shape takes it."""
+    e = {"wq": wq, "sw": sw, "bias": bias}
+    if wq.device.type == "cuda" and wgmma_tile(wq.numel() // wq.shape[-1], wq.shape[-1], dense=wq.ndim == 2):
+        e["wq_packed"] = pack_weight(wq)
+    return e
+
+
 def _quant_weight(w: torch.Tensor):
     """Symmetric per-output-channel int8: w ~= wq * sw."""
     amax = w.abs().amax(dim=tuple(range(w.ndim - 1)))
@@ -167,7 +183,7 @@ def quantize_encoder(params, cfg: VAEConfig, calib_x: Optional[torch.Tensor] = N
         for j, _ in _block_convs(cfg):
             name = f"EncoderBlock_{i}/Conv_{j}"
             wq, sw = _quant_weight(blk[f"Conv_{j}"]["kernel"])
-            q["conv"][name] = {"wq": wq, "sw": sw, "bias": blk[f"Conv_{j}"]["bias"]}
+            q["conv"][name] = _entry(wq, sw, blk[f"Conv_{j}"]["bias"])
             if calib_x is not None:
                 q["act_scale"][name] = torch.clamp_min(collect[name] / 127.0, 1e-12)
             if cfg.norm == "group":
@@ -175,7 +191,7 @@ def quantize_encoder(params, cfg: VAEConfig, calib_x: Optional[torch.Tensor] = N
                     "scale": blk[f"GroupNorm_{j}"]["scale"], "bias": blk[f"GroupNorm_{j}"]["bias"],
                 }
     wq, sw = _quant_weight(p["Dense_0"]["kernel"])
-    q["conv"]["Dense_0"] = {"wq": wq, "sw": sw, "bias": p["Dense_0"]["bias"]}
+    q["conv"]["Dense_0"] = _entry(wq, sw, p["Dense_0"]["bias"])
     if calib_x is not None:
         q["act_scale"]["Dense_0"] = torch.clamp_min(collect["Dense_0"] / 127.0, 1e-12)
     q["f32"]["head_mu"] = p["head_mu"]
@@ -199,8 +215,14 @@ def _act_scale(q: dict, name: str, v: torch.Tensor) -> torch.Tensor:
 def encoder_apply_quantized(q: dict, cfg: VAEConfig, x: torch.Tensor) -> dict:
     """[B, T, M, 1] log-mel -> {"z", "mu"} (z == mu, the deterministic
     serving contract) with int8 conv / dense contractions; ``q`` and ``x`` on
-    one device."""
+    one device. On the card the kernels quantize the f32 activations as they
+    load them; on the CPU ``_quant_x`` runs first."""
     act = activation(cfg.activation)
+    on_card = x.device.type == "cuda"
+
+    def operand(v, sx):
+        return v if on_card else _quant_x(v, sx)
+
     with exact_f32():
         for i in range(len(cfg.widths)):
             for j, stride in _block_convs(cfg):
@@ -208,7 +230,8 @@ def encoder_apply_quantized(q: dict, cfg: VAEConfig, x: torch.Tensor) -> dict:
                 c = q["conv"][name]
                 sx = _act_scale(q, name, x)
                 pads = _conv_pads(cfg, x.shape[1], x.shape[2], stride)
-                x = int8_conv(_quant_x(x, sx), c["wq"], sx, c["sw"], c["bias"], stride, pads)
+                x = int8_conv(operand(x, sx), c["wq"], sx, c["sw"], c["bias"], stride, pads,
+                              packed=c.get("wq_packed"))
                 if cfg.norm == "group":
                     gn = q["gn"][f"EncoderBlock_{i}/GroupNorm_{j}"]
                     x = _group_norm(x, gn["scale"], gn["bias"], cfg.groups, cfg.gn_eps)
@@ -218,6 +241,6 @@ def encoder_apply_quantized(q: dict, cfg: VAEConfig, x: torch.Tensor) -> dict:
         x = x.reshape(x.shape[0], -1)
         c = q["conv"]["Dense_0"]
         sx = _act_scale(q, "Dense_0", x)
-        x = act(int8_dense(_quant_x(x, sx), c["wq"], sx, c["sw"], c["bias"]))
+        x = act(int8_dense(operand(x, sx), c["wq"], sx, c["sw"], c["bias"], packed=c.get("wq_packed")))
         mu = x @ q["f32"]["head_mu"]["kernel"] + q["f32"]["head_mu"]["bias"]
     return {"z": mu, "mu": mu}

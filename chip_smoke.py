@@ -86,24 +86,31 @@ failure exits non-zero):
    ``VAEConfig``): both kernels of ``csrc/int8_gemm.cu`` (``int8_conv``,
    ``int8_dense``) held to their plain versions bit for bit at every int8
    layer of the encoder (stride family with XLA SAME and TORCH pads, avgpool
-   family, the dense at K = 12288) at B = 1024, 1 and 63, and the library
-   route's limits (patches + ``torch._int_mm``) shown on the card; the main
+   family, the dense at K = 12288 split over the SMs) at B = 1024, 1 and 63,
+   in both operand modes (f32 x quantized on load, int8 codes), f32 output
+   and raw int32 sums, both forms of the wgmma path where a conv takes both,
+   on random x with clamped codes and on x of exact rounding ties, and the
+   library route's limits (patches + ``torch._int_mm``) shown on the card; the main
    path ``EncoderSession(quantize=True)`` in the parity tier,
    ``encode_paths`` + ``detect_species`` on the six serving WAVs, counts set
    to 0 just before and read just after (``mel_power_ct``, ``int8_conv``,
    ``int8_dense`` must move), held to the same session on the CPU (row max
    rel <= 0.1, cosine >= 0.997: the free-running bound of
    tests/test_torch_quant.py), to the f32 session (cosine > 0.97, rel L2 <
-   0.25) and to the CPU's decisions; ``evaluate-wav --serving-tier parity
+   0.25) and to the CPU's decisions, and bit for bit to the same session
+   with torch's quantization before the int8-operand mode; ``evaluate-wav --serving-tier parity
    --quantize-serving`` exit codes, the balanced tier with int8 refused,
    batch-mate independence (1e-5); ``ingest-encoder --verify`` on the card
    for full-width torch checkpoints with Hydra YAML (stride + GroupNorm,
    avgpool), ``ingest-decoder --verify`` on a pickled full-width decoder, the
    artifacts served against their torch modules (rtol 5e-4 / atol 2e-5) and
    the avgpool one int8 (cosine > 0.97); times at B = 1024 of each int8 layer
-   (kernel, plain, bound, the library route, f32 / bf16 cuDNN), the encoder a
-   batch (int8, f32, bf16 trunks) and ``encode_array`` (int8, parity,
-   balanced);
+   in both operand modes (kernel, plain, each mode's bound, PR 10's kernel,
+   torch's quantization + the kernel, the library route, f32 / bf16 cuDNN;
+   the int8 mode must not be slower than PR 10's), the encoder a batch
+   (int8 quantized on load and with torch's quantization, f32, bf16 trunks),
+   the CUDA kernels of one int8 forward (at least 36 fewer than with torch's
+   quantization) and ``encode_array`` (int8, parity, balanced);
 9. the parallel path (``anuraxla_torch.parallel``) at full width on the one
    card, whose in-process mesh repeats ``cuda:0`` as 4 data shards:
    ``EncoderSession(data_parallel=True)`` over the one card bitwise the single
@@ -1991,11 +1998,19 @@ PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data she
 QUANT = "anuraxla/models/quant.py"
 INT8_KERNELS = {
     "int8_conv": ("anuraxla_torch/csrc/int8_gemm.cu",
-                  f"{QUANT}:204 (_int8_conv: lax.conv_general_dilated on int8, int32 sums; XLA, not Pallas)"),
+                  f"{QUANT}:204 (_int8_conv: lax.conv_general_dilated on int8, int32 sums, its operand from "
+                  f"_quant_x :194; XLA, not Pallas)"),
     "int8_dense": ("anuraxla_torch/csrc/int8_gemm.cu",
-                   f"{QUANT}:198 (_int8_dot: lax.dot_general on int8, int32 sums; XLA, not Pallas)"),
+                   f"{QUANT}:198 (_int8_dot: lax.dot_general on int8, int32 sums, its operand from _quant_x :194; "
+                   f"XLA, not Pallas)"),
 }
 INT8_BATCHES = (TIMING_B, 1, 63)  # rows the kernels are held to their plain versions at
+# convs whose Cin % 16 == 0 but no power of two: the gathered form of the wgmma path
+INT8_GATHERED = ((48, 16, 48, 64, 1, ((1, 1), (1, 1))), (48, 16, 96, 128, 2, ((0, 1), (0, 1))))
+# PR 10's kernel (mma.sync, int8 x) at B = 1024, perf_logs/pr10/full1.log:322-330
+PR10_INT8_MS = {"EncoderBlock_0/Conv_0": 0.352, "EncoderBlock_0/Conv_1": 0.519, "EncoderBlock_1/Conv_0": 0.304,
+                "EncoderBlock_1/Conv_1": 0.475, "EncoderBlock_2/Conv_0": 0.286, "EncoderBlock_2/Conv_1": 0.481,
+                "EncoderBlock_3/Conv_0": 0.264, "EncoderBlock_3/Conv_1": 0.481, "Dense_0": 0.268}
 INT8_TIMED_CONV = "EncoderBlock_0/Conv_1"  # the kernels line's int8_conv shape: the conv with the most bytes
 # free running, card vs CPU and port vs reference: the bound of
 # tests/test_torch_quant.py (FREE_REL, FREE_COS): the integer parts are
@@ -2046,8 +2061,11 @@ def int8_layers(cfg):
     return out
 
 
-def int8_operands(shape, B: int, gen: torch.Generator):
-    """Random int8 codes, per-row scales, per-channel scales and biases on the card."""
+def int8_operands(shape, B: int, gen: torch.Generator, ties: bool = False):
+    """f32 activations, per-row scales, int8 weights, per-channel scales and
+    biases on the card. x / sx reaches past +-127 (clamped codes); with
+    ``ties`` every x is (k + 1/2) sx exactly, sx a power of two, k in
+    [-140, 140): each code a rounding tie (half to even), some clamped."""
     dev = "cuda"
     if len(shape) == 2:
         (K, N), xs = shape, (B, shape[0])
@@ -2056,18 +2074,79 @@ def int8_operands(shape, B: int, gen: torch.Generator):
         H, W, cin, N = shape[:4]
         xs = (B, H, W, cin)
         w = torch.randint(-127, 128, (3, 3, cin, N), generator=gen, device=dev, dtype=torch.int8)
-    x = torch.randint(-127, 128, xs, generator=gen, device=dev, dtype=torch.int8)
-    sx = torch.rand(B, generator=gen, device=dev) * 0.05 + 1e-3
+    if ties:
+        sx = torch.full((B,), 2.0 ** -5, device=dev)
+        x = (torch.randint(-140, 140, xs, generator=gen, device=dev).float() + 0.5) * 2.0 ** -5
+    else:
+        sx = torch.rand(B, generator=gen, device=dev) * 0.05 + 1e-3
+        x = torch.randn(xs, generator=gen, device=dev) * 60.0 * sx.reshape(-1, *[1] * (len(xs) - 1))
     sw = torch.rand(N, generator=gen, device=dev) * 0.01 + 1e-4
     return x, w, sx, sw, torch.randn(N, generator=gen, device=dev)
 
 
-def int8_call(shape, ops, plain: bool = False, raw: bool = False):
+def int8_codes(ops):
+    """The same operands with x as int8 codes (torch's quantization, the
+    reference's ``_quant_x``): the int8-operand mode."""
+    from anuraxla_torch.ops.int8 import quantize_rows
+
+    return (quantize_rows(ops[0], ops[2]),) + tuple(ops[1:])
+
+
+@contextlib.contextmanager
+def torch_quantization():
+    """The int8 forward's second route, for the checks: torch's quantization
+    (the reference's ``_quant_x``) before the int8-operand mode of each
+    contraction, in place of the kernels' quantization on load."""
+    from anuraxla_torch.models import quant as quant_mod
+    from anuraxla_torch.ops import int8 as i8
+
+    def conv(x, wq, sx, *args, **kw):
+        return i8.int8_conv(i8.quantize_rows(x, sx), wq, sx, *args, **kw)
+
+    def dense(x, wq, sx, *args, **kw):
+        return i8.int8_dense(i8.quantize_rows(x, sx), wq, sx, *args, **kw)
+
+    saved = quant_mod.int8_conv, quant_mod.int8_dense
+    quant_mod.int8_conv, quant_mod.int8_dense = conv, dense
+    try:
+        yield
+    finally:
+        quant_mod.int8_conv, quant_mod.int8_dense = saved
+
+
+def int8_call(shape, ops, plain: bool = False, raw: bool = False, packed=None):
     from anuraxla_torch.ops import int8 as i8
 
     if len(shape) == 2:
-        return (i8.int8_dense_plain if plain else i8.int8_dense)(*ops, raw=raw)
-    return (i8.int8_conv_plain if plain else i8.int8_conv)(*ops, shape[4], shape[5], raw=raw)
+        if plain:
+            return i8.int8_dense_plain(*ops, raw=raw)
+        return i8.int8_dense(*ops, raw=raw, packed=packed)
+    if plain:
+        return i8.int8_conv_plain(*ops, shape[4], shape[5], raw=raw)
+    return i8.int8_conv(*ops, shape[4], shape[5], raw=raw, packed=packed)
+
+
+def int8_tile(shape, B: int) -> str:
+    """The kernel's tile for a layer, as the wrapper chooses it."""
+    from anuraxla_torch.ops import int8 as i8
+
+    if len(shape) == 2:
+        K, N = shape
+        bn, bk = i8.wgmma_tile(K, N, dense=True)
+        S = -(-K // bk)
+        splits = i8.dense_splits(-(-B // 128), N // bn, S, torch.cuda.get_device_properties(0).multi_processor_count)
+        return (f"wgmma m64n{bn}k32 s8, 128 x {bn} a block ({N // bn} column tiles), {S} K stages of {bk} in a "
+                f"4-slot TMA ring, no swizzle, split-K {splits} (last block adds the partials)")
+    H, W, cin, N, stride, pads = shape
+    tile = i8.wgmma_tile(9 * cin, N)
+    if tile is None:
+        if cin == 1:
+            return f"first conv: one output pixel a thread, its 9 codes in 3 words, 3 dp4a a channel, {N} channels"
+        return f"simple: mma.sync m16n8k32 s8, 64 x {min(N, 64) if N > 32 else 32} a block, K {9 * cin} in steps of 32"
+    bn, bk = tile
+    form = "halo" if i8.halo_fits(B, H, W, cin, N, stride, pads, bk) else "gathered A"
+    return (f"wgmma m64n{bn}k32 s8, 128 x {bn} a block, {-(-9 * cin // bk)} K stages of {bk} in a 4-slot TMA "
+            f"ring, no swizzle, {form}")
 
 
 def int8_library(shape, ops):
@@ -2106,19 +2185,20 @@ def exact_n(shape, B: int) -> int:
     return B * ho * wo * shape[3]
 
 
-def int8_work(shape, B: int) -> tuple:
+def int8_work(shape, B: int, f32: bool = False) -> tuple:
     """(int8 operations, bytes) the function needs: each input read once
-    (codes, weights, scales, biases), the f32 output written once."""
+    (x — int8 codes, or f32 activations in the quantize-on-load mode —,
+    weights, scales, biases), the f32 output written once."""
     if len(shape) == 2:
         (K, N), M = shape, B
-        x_bytes = B * K
+        x_el = B * K
     else:
         from anuraxla_torch.ops.int8 import conv_out_hw
 
         H, W, cin, N, stride, pads = shape
         ho, wo = conv_out_hw(H, W, stride, pads)
-        M, K, x_bytes = B * ho * wo, 9 * cin, B * H * W * cin
-    return 2.0 * M * K * N, x_bytes + K * N + 4 * B + 8 * N + 4 * M * N
+        M, K, x_el = B * ho * wo, 9 * cin, B * H * W * cin
+    return 2.0 * M * K * N, (4 if f32 else 1) * x_el + K * N + 4 * B + 8 * N + 4 * M * N
 
 
 def phase_int8_path(seed: int, root: Path) -> dict:
@@ -2126,12 +2206,15 @@ def phase_int8_path(seed: int, root: Path) -> dict:
     default ``VAEConfig``): both kernels of ``csrc/int8_gemm.cu`` held to
     their plain versions bit for bit at every int8 layer of the encoder
     (stride family with XLA SAME and with TORCH pads, avgpool family, the dense
-    at K = 12288) at B = 1024, 1 and 63; the main path — ``EncoderSession(
-    quantize=True)`` in the parity tier, ``encode_paths`` + ``detect_species``
-    on the six serving WAVs, launch counts set to 0 just before and read just
-    after (``mel_power_ct``, ``int8_conv`` and ``int8_dense`` must move) —
-    against the same session on the CPU (the free-running bound), the f32
-    session (cosine > 0.97, relative L2 < 0.25) and the CPU's decisions;
+    at K = 12288 under split-K) at B = 1024, 1 and 63, in both operand modes,
+    raw sums too, on clamped codes and on rounding ties; the main path —
+    ``EncoderSession(quantize=True)`` in the parity tier, ``encode_paths`` +
+    ``detect_species`` on the six serving WAVs, launch counts set to 0 just
+    before and read just after (``mel_power_ct``, ``int8_conv`` and
+    ``int8_dense`` must move) — against the same session on the CPU (the
+    free-running bound), the f32 session (cosine > 0.97, relative L2 < 0.25),
+    the CPU's decisions and, bit for bit, the session with torch's
+    quantization before the int8-operand mode;
     ``evaluate-wav --serving-tier parity --quantize-serving`` exit codes; the
     balanced tier with int8 refused; batch-mate independence on the card.
     Ingest: full-width torch checkpoints with Hydra YAML (stride + GroupNorm,
@@ -2140,9 +2223,11 @@ def phase_int8_path(seed: int, root: Path) -> dict:
     served (``EncoderSession`` against the torch module on the same mel,
     rtol 5e-4 / atol 2e-5; the decoder through ``load_decoder``), the
     avgpool one also int8 (cosine > 0.97). Times at B = 1024: each int8 layer
-    (kernel, plain version, bound, the library route and the f32 / bf16
-    cuDNN conv of the layer), the encoder a batch (int8, f32 and bf16
-    trunks), ``encode_array`` chunks/s (int8, parity, balanced).
+    in both operand modes (kernel, plain version, bound, PR 10's kernel,
+    torch's quantization + the kernel, the library route and the f32 / bf16
+    cuDNN conv of the layer), the encoder a batch (int8 both ways, f32 and
+    bf16 trunks), the CUDA kernels of one int8 forward, ``encode_array``
+    chunks/s (int8, parity, balanced).
     -> {"errors", "launches", "times"}."""
     import argparse as ap
     import dataclasses as dc
@@ -2170,34 +2255,58 @@ def phase_int8_path(seed: int, root: Path) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     vcfg = VAEConfig()
 
-    # 1. each kernel against its plain version, bitwise
+    # 1. each kernel against its plain version, bitwise, in both operand
+    # modes (f32 x quantized on load; int8 codes); random x with clamped
+    # codes, and x of rounding ties only. The encoder's wgmma convs all take
+    # the halo form; two convs whose Cin is no power of two take the
+    # gathered one
     cases = [("SAME", name, shape) for name, shape in int8_layers(vcfg)]
     same = dict(int8_layers(vcfg))
     cases += [("TORCH", n, s) for n, s in int8_layers(dc.replace(vcfg, conv_padding="TORCH")) if s != same[n]]
     cases += [("avgpool", n, s) for n, s in int8_layers(dc.replace(vcfg, downsample="avgpool"))]
-    n_checked = 0
+    cases[-1:-1] = [("gathered", f"Cin {s[2]}", s) for s in INT8_GATHERED]
+    halo = {i8.halo_fits(TIMING_B, *s[:4], s[4], s[5], i8.stage_depth(9 * s[2])) for _, _, s in cases
+            if len(s) == 6 and i8.wgmma_tile(9 * s[2], s[3])}
+    if halo != {True, False}:
+        raise AssertionError("the int8 gates miss the halo or the gathered form of the wgmma path")
+    n_checked, n_ties, n_clamped = 0, 0, 0
     for family, name, shape in cases:
+        packed = i8.pack_weight(int8_operands(shape, 1, gen)[1]) if len(shape) == 2 else None
         for B in INT8_BATCHES:
-            ops = int8_operands(shape, B, gen)
-            for raw in (False, True) if B == 63 else (False,):
-                got = int8_call(shape, ops, raw=raw)
-                ref = int8_call(shape, ops, plain=True, raw=raw)
-                torch.cuda.synchronize()
-                if not torch.equal(got, ref):
-                    d = (got.double() - ref.double()).abs().max().item()
-                    raise AssertionError(f"int8 {family} {name} {shape} B={B} raw={raw}: kernel != plain (max {d})")
-                n_checked += 1
-            del ops, got, ref
+            for ties in (False, True):
+                ops = int8_operands(shape, B, gen, ties=ties)
+                if packed is not None:  # the dense's packed W, made once for its shape
+                    ops = (ops[0], i8.unpack_weight(packed, shape[0]).contiguous(), *ops[2:])
+                codes = int8_codes(ops)
+                u = ops[0] / ops[2].reshape(-1, *[1] * (ops[0].ndim - 1))
+                n_ties += int((u - u.floor() == 0.5).sum())
+                n_clamped += int((u.abs() > 127.5).sum())
+                for mode, o in (("f32", ops), ("int8", codes)):
+                    for raw in (False, True):
+                        ref = int8_call(shape, o, plain=True, raw=raw)
+                        got = int8_call(shape, o, raw=raw, packed=packed)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, ref):
+                            d = (got.double() - ref.double()).abs().max().item()
+                            raise AssertionError(f"int8 {family} {name} {shape} B={B} ties={ties} {mode} x "
+                                                 f"raw={raw}: kernel != plain (max {d})")
+                        n_checked += 1
+                del ops, codes, u, got, ref
+    dense = [(B, i8.dense_splits(-(-B // 128), 2, 96, torch.cuda.get_device_properties(0).multi_processor_count))
+             for B in INT8_BATCHES]
     log(f"[int8-path] int8_conv / int8_dense equal their plain versions bit for bit in {n_checked} cases: "
-        f"{len(cases)} layer shapes (stride SAME, TORCH pads where they differ, avgpool; the dense at K = "
-        f"{cases[-1][2][0]}) x B in {INT8_BATCHES}, the raw int32 sums too at B = 63 "
+        f"{len(cases)} layer shapes (stride SAME, TORCH pads where they differ, avgpool, two convs of the gathered "
+        f"form; the dense at K = "
+        f"{cases[-1][2][0]}, split-K over (M, splits) {dense}) x B in {INT8_BATCHES} x (random x, {n_clamped} codes "
+        f"clamped; x of ties only, {n_ties} ties in all, half to even) x (f32 x quantized on load, int8 codes) x "
+        f"(f32 output, raw int32 sums) "
         f"({time.perf_counter() - t0:.1f} s)")
     errors = {"int8_conv": 0.0, "int8_dense": 0.0}
 
     # the library route's limits, on the card
     for what, shape, B in (("first conv (K = 9)", cases[0][2], TIMING_B), ("a batch of one", cases[1][2], 1),
                            ("16 rows", cases[1][2], 16)):
-        _, why = int8_library(shape, int8_operands(shape, B, gen))
+        _, why = int8_library(shape, int8_codes(int8_operands(shape, B, gen)))
         log(f"[int8-path] library route (patches + torch._int_mm) on {what}: {'refused: ' + why if why else 'runs'}")
 
     # 2. the main path: int8 serving in the parity tier
@@ -2244,6 +2353,18 @@ def phase_int8_path(seed: int, root: Path) -> dict:
     if dec != decc or not dec[0][0]:
         raise AssertionError(f"int8 decisions: card {dec} vs cpu {decc} (chunk 0 sits on a centroid)")
     log(f"[main-path int8] decisions identical to the CPU's: {dec}")
+    # the same session with torch's quantization (the reference's _quant_x)
+    # before the int8-operand mode: the same codes, so the same latents, bit
+    # for bit — what keeps the _q8 cache key's meaning
+    import anuraxla_torch.pipeline.session as session_mod
+
+    with torch_quantization():
+        Zr, _, _ = sess.encode_paths(paths)
+    if not np.array_equal(Z, Zr):
+        raise AssertionError(f"int8 latents: quantize-on-load != torch quantization + int8 codes "
+                             f"(max {np.abs(Z - Zr).max():.3e})")
+    log(f"[main-path int8] latents with the quantization on load equal torch's quantization + the int8-operand "
+        f"mode bit for bit ({Z.size} values)")
 
     # the CLI: exit codes of evaluate-wav against a session built as the CLI builds it
     cli_kw = session_kwargs(evaluate_wav.build_parser().parse_args(
@@ -2358,62 +2479,81 @@ def phase_int8_path(seed: int, root: Path) -> dict:
         raise AssertionError("the ingested decoder does not reproduce its module")
     del served, s, sq, dec
 
-    # 4. times at B = 1024: each int8 layer, the encoder a batch, encode_array
+    # 4. times at B = 1024: each int8 layer in both operand modes, the
+    # encoder a batch, encode_array
     times = {}
     B = TIMING_B
     for name, shape in int8_layers(vcfg):
         ops = int8_operands(shape, B, gen)
-        flops, nbytes = int8_work(shape, B)
-        t_ops, t_bytes = flops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-        t = {"ms": cuda_ms(lambda: int8_call(shape, ops), iters=10),
-             "plain_ms": cuda_ms(lambda: int8_call(shape, ops, plain=True), iters=2, warmup=1),
-             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-             "gops": flops / 1e9, "gb": nbytes / 1e9}
-        lib, why = int8_library(shape, ops)
-        t["route_ms"] = cuda_ms(lib, iters=5) if lib else None
+        codes = int8_codes(ops)
+        packed = i8.pack_weight(ops[1]) if i8.wgmma_tile(ops[1].numel() // ops[1].shape[-1], ops[1].shape[-1],
+                                                         dense=len(shape) == 2) else None
+        t = {"pr10_ms": PR10_INT8_MS[name]}
+        for mode, o, f32 in (("f32", ops, True), ("int8", codes, False)):
+            flops, nbytes = int8_work(shape, B, f32=f32)
+            t_ops, t_bytes = flops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+            t[mode] = {"ms": cuda_ms(lambda: int8_call(shape, o, packed=packed), iters=10),
+                       "plain_ms": cuda_ms(lambda: int8_call(shape, o, plain=True), iters=2, warmup=1),
+                       "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "gops": flops / 1e9, "gb": nbytes / 1e9, "tile": int8_tile(shape, B)}
+        # the yardstick of the f32 mode: torch's quantization, then the kernel on the codes
+        t["route_ms"] = cuda_ms(lambda: int8_call(shape, int8_codes(ops), packed=packed), iters=5)
+        lib, why = int8_library(shape, codes)
+        t["library_route_ms"] = cuda_ms(lib, iters=5) if lib else None
         if lib is not None:  # a yardstick, not a gate: how far the library's sums are from exact
-            a = patches_of(shape, ops)
-            acc = torch._int_mm(a.reshape(-1, a.shape[-1]), ops[1].reshape(a.shape[-1], -1))
-            exact = int8_call(shape, ops, raw=True).reshape(acc.shape)
+            a = patches_of(shape, codes)
+            acc = torch._int_mm(a.reshape(-1, a.shape[-1]), codes[1].reshape(a.shape[-1], -1))
+            exact = int8_call(shape, codes, raw=True, packed=packed).reshape(acc.shape)
             t["route_int32_wrong"] = int((acc != exact).sum())
             t["route_int32_max_diff"] = int((acc.long() - exact.long()).abs().max())
-            t["route_f32_wrong"] = int((lib() != int8_call(shape, ops)).sum())
+            t["route_f32_wrong"] = int((lib() != int8_call(shape, codes, packed=packed)).sum())
             del a, acc, exact
-        xf = ops[0].float()
+        xf = codes[0].float()
         with exact_f32():
             if len(shape) == 2:
-                wf = ops[1].float()
+                wf = codes[1].float()
                 t["f32_ms"] = cuda_ms(lambda: xf @ wf, iters=5)
                 xb, wb = xf.bfloat16(), wf.bfloat16()
                 t["bf16_ms"] = cuda_ms(lambda: xb @ wb, iters=5)
-                t["library_ms"] = cuda_ms(lambda: torch._int_mm(ops[0], ops[1]), iters=5)
+                t["library_ms"] = cuda_ms(lambda: torch._int_mm(codes[0], codes[1]), iters=5)
             else:
                 (pt_, pb), (pl, pr) = shape[5]
                 xf = torch.nn.functional.pad(xf.permute(0, 3, 1, 2), (pl, pr, pt_, pb)).contiguous(
                     memory_format=torch.channels_last)
-                wf = ops[1].float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                wf = codes[1].float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                 conv = lambda a, b: torch.nn.functional.conv2d(a, b, stride=shape[4])  # noqa: E731
                 t["f32_ms"] = cuda_ms(lambda: conv(xf, wf), iters=5)
                 xb, wb = xf.bfloat16(), wf.bfloat16()
                 t["bf16_ms"] = cuda_ms(lambda: conv(xb, wb), iters=5)
                 t["library_ms"] = None  # no one PyTorch call computes an int8 conv on the card
         times[name] = t
-        route = (f"{t['route_ms']:.3f} ms, its int32 sums off the exact ones at {t['route_int32_wrong']} of "
+        route = (f"{t['library_route_ms']:.3f} ms, its int32 sums off the exact ones at {t['route_int32_wrong']} of "
                  f"{exact_n(shape, B)} outputs (max {t['route_int32_max_diff']}), its f32 output off the kernel's at "
-                 f"{t['route_f32_wrong']}" if t["route_ms"] is not None
-                 else f"refused ({why})")
-        log(f"[times] int8 {name} {shape} B={B}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
-            f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['gops']:.2f} G int8 ops -> {t_ops:.4f} ms at 1979 TOP/s, "
-            f"{t['gb']:.4f} GB -> {t_bytes:.4f} ms) = {100 * t['bound_ms'] / t['ms']:.2f}% of bound; library route "
-            f"(patches + torch._int_mm + epilogue) {route}"
-            + (f", torch._int_mm alone {t['library_ms']:.3f} ms" if t["library_ms"] is not None else "")
-            + f"; cuDNN / cuBLAS f32 {t['f32_ms']:.3f} ms, bf16 "
-            f"{t['bf16_ms']:.3f} ms (NHWC, TF32 off); {smi}")
-        del ops, xf, xb, wf, wb
+                 f"{t['route_f32_wrong']}" if t["library_route_ms"] is not None else f"refused ({why})")
+        modes = "; ".join(
+            f"{mode} x: kernel {t[mode]['ms']:.4f} ms, plain {t[mode]['plain_ms']:.3f} ms, bound "
+            f"{t[mode]['bound_ms']:.4f} ms by {t[mode]['bound_by']} ({t[mode]['gops']:.2f} G int8 ops, "
+            f"{t[mode]['gb']:.4f} GB) = {100 * t[mode]['bound_ms'] / t[mode]['ms']:.2f}% of bound [{t[mode]['tile']}]"
+            for mode in ("f32", "int8"))
+        log(f"[times] int8 {name} {shape} B={B}: {modes}; PR 10's kernel (int8 x) {t['pr10_ms']:.3f} ms; torch "
+            f"quantization + the kernel on the codes {t['route_ms']:.4f} ms; library route (patches + torch._int_mm + "
+            f"epilogue) {route}" + (f", torch._int_mm alone {t['library_ms']:.3f} ms" if t["library_ms"] is not None
+                                    else "")
+            + f"; cuDNN / cuBLAS f32 {t['f32_ms']:.3f} ms, bf16 {t['bf16_ms']:.3f} ms (NHWC, TF32 off); {smi}")
+        del ops, codes, xf, xb, wf, wb, packed
     convs = [v for k, v in times.items() if k != "Dense_0"]
-    log(f"[times] int8 layers summed, B={B}: 8 convs {sum(v['ms'] for v in convs):.3f} ms (bound "
-        f"{sum(v['bound_ms'] for v in convs):.4f}), dense {times['Dense_0']['ms']:.3f} ms; f32 convs "
-        f"{sum(v['f32_ms'] for v in convs):.3f}, bf16 convs {sum(v['bf16_ms'] for v in convs):.3f} ms; {smi}")
+    dn = times["Dense_0"]
+    log(f"[times] int8 layers summed, B={B}: 8 convs f32 x {sum(v['f32']['ms'] for v in convs):.4f} ms (bound "
+        f"{sum(v['f32']['bound_ms'] for v in convs):.4f}), int8 x {sum(v['int8']['ms'] for v in convs):.4f} ms (bound "
+        f"{sum(v['int8']['bound_ms'] for v in convs):.4f}; PR 10 {sum(v['pr10_ms'] for v in convs):.3f}), torch "
+        f"quantization + kernel {sum(v['route_ms'] for v in convs):.4f} ms; dense f32 x {dn['f32']['ms']:.4f} ms, "
+        f"int8 x {dn['int8']['ms']:.4f} ms (PR 10 {dn['pr10_ms']:.3f}); 8 convs + dense f32 x "
+        f"{sum(v['f32']['ms'] for v in times.values()):.4f} ms, int8 x {sum(v['int8']['ms'] for v in times.values()):.4f}"
+        f" ms; f32 convs {sum(v['f32_ms'] for v in convs):.3f}, bf16 convs {sum(v['bf16_ms'] for v in convs):.3f} ms; "
+        f"{smi}")
+    if not (sum(v["int8"]["ms"] for v in times.values()) <= sum(v["pr10_ms"] for v in times.values())
+            and dn["int8"]["ms"] <= dn["pr10_ms"]):
+        raise AssertionError("int8 layers in the int8-operand mode slower than PR 10's kernel")
 
     x = torch.randn(B, *vcfg.input_hw, 1, generator=gen, device="cuda")
     enc = {dt: ConvVAEEncoder(dc.replace(vcfg, dtype=dt)) for dt in ("float32", "bfloat16")}
@@ -2422,27 +2562,46 @@ def phase_int8_path(seed: int, root: Path) -> dict:
         e.eval().cuda()
     q = quantize_encoder(params, vcfg, device="cuda")
     with torch.inference_mode():
+        fused = encoder_apply_quantized(q, vcfg, x)["mu"]
+        with torch_quantization():
+            if not torch.equal(fused, encoder_apply_quantized(q, vcfg, x)["mu"]):
+                raise AssertionError("int8 encoder: quantize-on-load != torch quantization + int8 codes at B=1024")
+            route_ms = cuda_ms(lambda: encoder_apply_quantized(q, vcfg, x), iters=5)
         enc_ms = {"int8": cuda_ms(lambda: encoder_apply_quantized(q, vcfg, x), iters=5),
+                  "int8 torch quantization": route_ms,
                   **{dt: cuda_ms(lambda e=e: e(x), iters=5) for dt, e in enc.items()}}
     times["encoder ms"] = enc_ms
-    log(f"[times] encoder a batch of {B} ([192, 64] mels -> 128): int8 {enc_ms['int8']:.3f} ms, f32 trunk "
-        f"{enc_ms['float32']:.3f} ms, bf16 trunk {enc_ms['bfloat16']:.3f} ms; {smi}")
-    # where the int8 encoder's time goes: the device time of one forward by kernel
+    log(f"[times] encoder a batch of {B} ([192, 64] mels -> 128): int8 {enc_ms['int8']:.3f} ms (quantized on load; "
+        f"with torch's quantization before the kernels {enc_ms['int8 torch quantization']:.3f} ms, the same latents "
+        f"bit for bit), f32 trunk {enc_ms['float32']:.3f} ms, bf16 trunk {enc_ms['bfloat16']:.3f} ms; {smi}")
+    # where the int8 encoder's time goes: the device time of one forward by
+    # kernel, and the CUDA kernels it launches, against the same forward with
+    # torch's quantization before each contraction (PR 10's sequence)
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    with torch.inference_mode(), tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        encoder_apply_quantized(q, vcfg, x)
-        torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-
-    rows_ = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0), key=lambda r: -r[1])
+    prof_rows = {}
+    for label, route in (("fused", contextlib.nullcontext), ("torch quantization", torch_quantization)):
+        with route(), torch.inference_mode(), tprofile(activities=[ProfilerActivity.CPU,
+                                                                   ProfilerActivity.CUDA]) as prof:
+            encoder_apply_quantized(q, vcfg, x)
+            torch.cuda.synchronize()
+        prof_rows[label] = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                                  key=lambda r: -r[1])
+    rows_ = prof_rows["fused"]
     total = sum(r[1] for r in rows_)
-    times["int8 encoder profile ms"] = {"device total": total, "int8 kernels": sum(
-        r[1] for r in rows_ if "int8_gemm" in r[0])}
-    log(f"[times] int8 encoder profile (torch.profiler, one forward, B={B}): device time {total:.3f} ms, of it "
-        f"int8_gemm {times['int8 encoder profile ms']['int8 kernels']:.3f} ms; top kernels: " + "; ".join(
+    n_kernels = {k: sum(r[2] for r in v) for k, v in prof_rows.items()}
+    times["int8 encoder profile ms"] = {
+        "device total": total, "int8 kernels": sum(r[1] for r in rows_ if "int8_" in r[0]),
+        "kernels": n_kernels["fused"], "kernels with torch quantization": n_kernels["torch quantization"]}
+    log(f"[times] int8 encoder profile (torch.profiler, one forward, B={B}): device time {total:.3f} ms, of it the "
+        f"int8 kernels {times['int8 encoder profile ms']['int8 kernels']:.3f} ms; {n_kernels['fused']} CUDA kernels, "
+        f"{n_kernels['torch quantization']} with torch's quantization before each contraction ("
+        f"{n_kernels['torch quantization'] - n_kernels['fused']} fewer); top kernels: " + "; ".join(
             f"{k[:70]} {ms:.3f} ms x{n}" for k, ms, n in rows_[:12]))
+    if n_kernels["torch quantization"] - n_kernels["fused"] < 36:
+        raise AssertionError(f"one int8 forward launches {n_kernels} CUDA kernels: fewer than 36 saved")
     del x, enc, q
 
     y = pre_pad(mel, test_rows(mel, B, np.random.default_rng([seed, 9])))
@@ -3132,11 +3291,16 @@ def main() -> None:
     for name, (source, replaces) in INT8_KERNELS.items():
         layer = INT8_TIMED_CONV if name == "int8_conv" else "Dense_0"
         t = int8["times"][layer]
+        f, q8 = t["f32"], t["int8"]  # the main path quantizes on load: its mode is the line's
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "config": f"default VAEConfig {layer} B={TIMING_B}", "launches": int8["launches"][name],
-            "max_abs_err": int8["errors"][name], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "config": f"default VAEConfig {layer} B={TIMING_B}, f32 x quantized on load",
+            "launches": int8["launches"][name], "max_abs_err": int8["errors"][name], "ms": f["ms"],
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": t["library_ms"], "tile": f["tile"],
+            "int8_x": {"ms": q8["ms"], "plain_ms": q8["plain_ms"], "bound_ms": q8["bound_ms"],
+                       "bound_by": q8["bound_by"], "tile": q8["tile"], "pr10_ms": t["pr10_ms"]},
+            "torch_quantization_then_kernel_ms": t["route_ms"],
         })
     from anuraxla_torch.probes.common import card_line
 
@@ -3151,7 +3315,8 @@ def main() -> None:
                     if k.startswith("train step")) + " examples/s (host-bound), "
         + ", ".join(f"{k.split()[2]} {v['device examples/s']:.1f}" for k, v in training["times"].items()
                     if k.startswith("train step")) + " (device); int8 encoder "
-        + f"{int8['times']['encoder ms']['int8']:.3f} ms a batch of {TIMING_B} (f32 "
+        + f"{int8['times']['encoder ms']['int8']:.3f} ms a batch of {TIMING_B} ("
+        + f"{int8['times']['int8 encoder profile ms']['kernels']} CUDA kernels; f32 "
         + f"{int8['times']['encoder ms']['float32']:.3f}, bf16 {int8['times']['encoder ms']['bfloat16']:.3f}), "
         + "encode_array " + ", ".join(f"{k} {v:.1f}" for k, v in int8["times"]["chunks_per_s"].items())
         + " chunks/s; parallel path " + ", ".join(f"{k} {v:.1f}" for k, v in parallel["times"].items()

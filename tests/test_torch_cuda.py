@@ -656,8 +656,8 @@ def test_int8_wrappers_refuse_on_cuda(card):
     from anuraxla_torch.ops import int8 as ti8
 
     x, w, sx, sw, bias = (t.to(card) for t in _int8_operands(INT8_CONVS[4], 1))
-    with pytest.raises(ValueError, match="int8"):
-        ti8.int8_conv(x.float(), w, sx, sw, bias, 2, ((0, 1), (1, 1)))
+    with pytest.raises(ValueError, match="int8"):  # int8 codes or f32 activations, nothing else
+        ti8.int8_conv(x.double(), w, sx, sw, bias, 2, ((0, 1), (1, 1)))
     with pytest.raises(ValueError, match="stride"):
         ti8.int8_conv(x, w, sx, sw, bias, 3, ((0, 1), (1, 1)))
     with pytest.raises(ValueError, match="sw and bias"):
@@ -666,6 +666,126 @@ def test_int8_wrappers_refuse_on_cuda(card):
         ti8.int8_conv(x, w, sx[:2], sw, bias, 2, ((0, 1), (1, 1)))
     with pytest.raises(ValueError, match="is on"):
         ti8.int8_conv(x, w.cpu(), sx, sw, bias, 2, ((0, 1), (1, 1)))
+
+
+# the f32-operand mode (quantized as the kernel loads it) against its plain
+# version, bitwise: the default encoder's layer shapes (SAME, TORCH pads,
+# the avgpool family's stride-1 convs: the halo form), two convs of the
+# gathered form (Cin no power of two), odd shapes on the simple path, random
+# x with clamped codes and x of ties only
+INT8_F32_CONVS = [
+    (2, 192, 64, 1, 32, 2, ((0, 1), (0, 1))),
+    (3, 96, 32, 32, 32, 1, ((1, 1), (1, 1))),
+    (2, 96, 32, 32, 64, 2, ((0, 1), (0, 1))),
+    (2, 96, 32, 32, 64, 2, ((1, 1), (1, 1))),
+    (1, 48, 16, 64, 64, 1, ((1, 1), (1, 1))),
+    (3, 48, 16, 64, 128, 2, ((0, 1), (0, 1))),
+    (2, 24, 8, 128, 128, 1, ((1, 1), (1, 1))),
+    (5, 24, 8, 128, 256, 2, ((0, 1), (0, 1))),
+    (7, 12, 4, 256, 256, 1, ((1, 1), (1, 1))),
+    (3, 48, 16, 48, 64, 1, ((1, 1), (1, 1))),
+    (2, 48, 16, 96, 128, 2, ((0, 1), (0, 1))),
+    (5, 7, 9, 3, 12, 2, ((0, 1), (1, 1))),
+    (2, 10, 6, 16, 32, 1, ((1, 1), (1, 1))),
+    (3, 13, 9, 32, 64, 2, ((1, 1), (0, 1))),
+]
+
+
+def _f32_operands(shape, seed, ties):
+    """f32 x whose codes clamp past +-127, or x = (k + 1/2) sx exactly (sx a
+    power of two): every code a tie, rounded half to even."""
+    g = torch.Generator().manual_seed(seed)
+    B, H, W, cin, cout = shape[:5]
+    if ties:
+        sx = torch.full((B,), 2.0 ** -5)
+        x = (torch.randint(-140, 140, (B, H, W, cin), generator=g).float() + 0.5) * 2.0 ** -5
+    else:
+        sx = torch.rand(B, generator=g) * 0.05 + 1e-3
+        x = torch.randn(B, H, W, cin, generator=g) * 60.0 * sx[:, None, None, None]
+    w = torch.randint(-127, 128, (3, 3, cin, cout), generator=g, dtype=torch.int8)
+    return x, w, sx, torch.rand(cout, generator=g) * 0.01, torch.randn(cout, generator=g)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["clamps", "ties"])
+@pytest.mark.parametrize("shape", INT8_F32_CONVS, ids=lambda s: "x".join(map(str, s[:5])) + f"s{s[5]}")
+def test_int8_conv_f32_operand_matches_plain(card, shape, ties):
+    from anuraxla_torch.ops import int8 as ti8
+
+    x, w, sx, sw, bias = _f32_operands(shape, sum(shape[:5]), ties)
+    stride, pads = shape[5], shape[6]
+    codes = ti8.quantize_rows(x, sx)
+    ref = ti8.int8_conv_plain(x, w, sx, sw, bias, stride, pads)
+    raw_ref = ti8.int8_conv_plain(x, w, sx, sw, bias, stride, pads, raw=True)
+    assert torch.equal(ref, ti8.int8_conv_plain(codes, w, sx, sw, bias, stride, pads))
+    dev = [t.to(card) for t in (x, w, sx, sw, bias)]
+    tile = ti8.wgmma_tile(9 * shape[3], shape[4])
+    packed = ti8.pack_weight(dev[1]) if tile else None
+    if tile:  # the halo form exactly where Cin is a power of two from 32
+        assert ti8.halo_fits(*shape[:5], stride, pads, tile[1]) == (shape[3] >= 32 and shape[3] & (shape[3] - 1) == 0)
+    n0 = ti8.launches()["int8_conv"]
+    got = ti8.int8_conv(*dev, stride, pads, packed=packed)
+    raw = ti8.int8_conv(*dev, stride, pads, raw=True, packed=packed)
+    one = ti8.int8_conv(*dev[:2], dev[2][:1], *dev[3:], stride, pads, packed=packed)  # one scale for every row
+    torch.cuda.synchronize()
+    assert ti8.launches()["int8_conv"] == n0 + 3
+    assert torch.equal(got.cpu(), ref) and torch.equal(raw.cpu(), raw_ref)
+    assert torch.equal(one.cpu(), ti8.int8_conv_plain(x, w, sx[:1], sw, bias, stride, pads))
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["clamps", "ties"])
+@pytest.mark.parametrize("m", [1, 63, 1024])
+def test_int8_dense_split_k_matches_plain(card, m, ties):
+    """The dense at K = 12288 split over the card's SMs, both operand modes,
+    the raw sums and the f32 epilogue; twice, so the counters the first call
+    leaves serve the second."""
+    from anuraxla_torch.ops import int8 as ti8
+
+    K, N = 12288, 512
+    g = torch.Generator().manual_seed(m + ties)
+    if ties:
+        sx = torch.full((m, 1), 2.0 ** -5)
+        x = (torch.randint(-140, 140, (m, K), generator=g).float() + 0.5) * 2.0 ** -5
+    else:
+        sx = torch.rand(m, 1, generator=g) * 0.05 + 1e-3
+        x = torch.randn(m, K, generator=g) * 60.0 * sx
+    w = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    sw, bias = torch.rand(N, generator=g) * 0.01, torch.randn(N, generator=g)
+    bn, bk = ti8.wgmma_tile(K, N, dense=True)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert ti8.dense_splits(-(-m // 128), N // bn, K // bk, sms) > 1  # the split path
+    dev = [t.to(card) for t in (x, w, sx, sw, bias)]
+    packed = ti8.pack_weight(dev[1])
+    codes = ti8.quantize_rows(dev[0], dev[2])
+    for xin in (dev[0], codes):
+        for _ in range(2):
+            got = ti8.int8_dense(xin, *dev[1:], packed=packed)
+            raw = ti8.int8_dense(xin, *dev[1:], raw=True, packed=packed)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), ti8.int8_dense_plain(x, w, sx, sw, bias))
+            assert torch.equal(raw.cpu(), ti8.int8_dense_plain(x, w, sx, sw, bias, raw=True))
+
+
+def test_quantized_forward_fused_equals_torch_quantization(card, monkeypatch):
+    """The int8 encoder on the card: activations quantized on load give the
+    latents of torch's quantization + the int8-operand mode (each
+    contraction's x quantized first, by a shim), bit for bit."""
+    from anuraxla_torch.models import quant as tq
+    from anuraxla_torch.models.quant import encoder_apply_quantized, quantize_encoder
+    from anuraxla_torch.models.vae import VAEConfig, init_encoder_params
+    from anuraxla_torch.ops import int8 as ti8
+
+    cfg = VAEConfig()
+    q = quantize_encoder(init_encoder_params(cfg, torch.Generator().manual_seed(0)), cfg, device=card)
+    assert "wq_packed" in q["conv"]["EncoderBlock_3/Conv_1"] and "wq_packed" in q["conv"]["Dense_0"]
+    x = torch.randn(9, *cfg.input_hw, 1, generator=torch.Generator().manual_seed(1)).to(card)
+    with torch.inference_mode():
+        fused = encoder_apply_quantized(q, cfg, x)["mu"]
+        monkeypatch.setattr(tq, "int8_conv", lambda v, w, sx, *a, **k: ti8.int8_conv(
+            ti8.quantize_rows(v, sx), w, sx, *a, **k))
+        monkeypatch.setattr(tq, "int8_dense", lambda v, w, sx, *a, **k: ti8.int8_dense(
+            ti8.quantize_rows(v, sx), w, sx, *a, **k))
+        ref = encoder_apply_quantized(q, cfg, x)["mu"]
+    assert torch.equal(fused, ref)
 
 
 def test_quantized_session_on_card_matches_cpu(card):
