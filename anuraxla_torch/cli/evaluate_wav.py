@@ -19,6 +19,7 @@ frontend backend and the encoder dtype; ``--fast-frontend``,
 from __future__ import annotations
 
 import argparse
+import itertools
 import sys
 from pathlib import Path
 from typing import Optional, Tuple
@@ -33,6 +34,9 @@ from anuraxla_torch.config import get_chunk_seconds, load_config, priority_ranks
 from anuraxla_torch.detect.radial import radial_decide
 from anuraxla_torch.pipeline.dataset import load_wav_batch
 from anuraxla_torch.pipeline.session import EncoderSession
+from anuraxla_torch.utils.timing import span
+
+_requests = itertools.count()  # a span's id: the request's number in this process
 
 
 def detect_species(
@@ -41,20 +45,22 @@ def detect_species(
     config_path: str | Path,
 ) -> Tuple[bool, Optional[str], float]:
     """-> (detected, species|None, best_distance)."""
-    cfg = load_config(Path(config_path))
-    species, centroids, thresholds, chunk_seconds = read_radial(cfg)
-    session.reconfigure(duration=chunk_seconds)
-    batch = load_wav_batch([Path(wav_path)], sr=session.mel.sr, num_samples=session.mel.num_samples)
-    if not batch.ok[0]:
-        raise FileNotFoundError(f"cannot read WAV: {wav_path} ({batch.errors[0]})")
-    Z = torch.from_numpy(session.encode_array(batch.audio))
-    det, win, best = radial_decide(
-        Z, torch.from_numpy(centroids), torch.from_numpy(thresholds),
-        torch.from_numpy(priority_ranks(species)),
-    )
-    detected = bool(det[0])
-    sp = species[int(win[0])] if detected else None
-    return detected, sp, float(best[0])
+    with span("request", id=next(_requests)):
+        with span("config_read"):
+            cfg = load_config(Path(config_path))
+            species, centroids, thresholds, chunk_seconds = read_radial(cfg)
+        session.reconfigure(duration=chunk_seconds)
+        batch = load_wav_batch([Path(wav_path)], sr=session.mel.sr, num_samples=session.mel.num_samples)
+        if not batch.ok[0]:
+            raise FileNotFoundError(f"cannot read WAV: {wav_path} ({batch.errors[0]})")
+        Z = torch.from_numpy(session.encode_array(batch.audio))
+        det, win, best = radial_decide(
+            Z, torch.from_numpy(centroids), torch.from_numpy(thresholds),
+            torch.from_numpy(priority_ranks(species)),
+        )
+        detected = bool(det[0])
+        sp = species[int(win[0])] if detected else None
+        return detected, sp, float(best[0])
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -34,7 +34,7 @@ from anuraxla_torch.detect.gaussian_map import map_decide
 from anuraxla_torch.detect.radial import radial_decide
 from anuraxla_torch.pipeline.dataset import scan_species_tree
 from anuraxla_torch.pipeline.session import EncoderSession
-from anuraxla_torch.utils.timing import maybe_trace, stage_timer
+from anuraxla_torch.utils.timing import maybe_trace, span, stage_timer
 
 NO_DETECT = "NO_DETECT"
 ERROR = "ERROR"
@@ -81,21 +81,25 @@ def run_folder_benchmark(
         load_config(config_path), detector, session._dev)
     session.reconfigure(duration=chunk_seconds)
 
-    tree = scan_species_tree(root)  # folder name == ground truth
-    if not any(tree.values()):
-        raise RuntimeError(f"no species subfolders with wavs under: {root}")
-
-    all_paths: List[Path] = []
-    true_names: List[str] = []
-    for sp in sorted(tree):
-        for p in tree[sp]:
-            all_paths.append(p)
-            true_names.append(sp)
-
     with maybe_trace("folder_benchmark"):
+        with span("tree_scan") as s:
+            tree = scan_species_tree(root)  # folder name == ground truth
+            s["files"] = sum(len(v) for v in tree.values())
+        if not any(tree.values()):
+            raise RuntimeError(f"no species subfolders with wavs under: {root}")
+
+        all_paths: List[Path] = []
+        true_names: List[str] = []
+        for sp in sorted(tree):
+            for p in tree[sp]:
+                all_paths.append(p)
+                true_names.append(sp)
+
         with stage_timer("encode", n_items=len(all_paths), log=None) as t_enc:
             Z, ok, errors = session.encode_paths(all_paths)
-        detected, winner, best = (x.cpu().numpy() for x in decide(torch.from_numpy(Z).to(session._dev)))
+        res = decide(torch.from_numpy(Z).to(session._dev))
+        with span("fetch", rows=len(all_paths)):
+            detected, winner, best = (x.cpu().numpy() for x in res)
 
     rows: List[dict] = []
     for i, p in enumerate(all_paths):

@@ -22,6 +22,7 @@ from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequenc
 import numpy as np
 
 from anuraxla_torch.native import wavloader
+from anuraxla_torch.utils.timing import span
 from anuraxla_torch.utils.wavio import crop_or_pad_samples, read_wav
 
 
@@ -90,12 +91,24 @@ def load_wav_batch(
     elif out.shape != (n, row_len) or out.dtype != np.float32:
         raise ValueError(f"out must be float32 {(n, row_len)}, got {out.dtype} {out.shape}")
 
-    if use_native and wavloader.available():
-        ok, errors = wavloader.decode_into(paths, out, sr=sr, num_samples=num_samples, col_offset=col_off,
-                                           num_threads=num_threads)
-        load_wav_batch.routes["native"] += 1
-        return LoadedBatch(out, ok, errors)
+    with span("decode", files=n) as sp:
+        if use_native and wavloader.available():
+            ok, errors = wavloader.decode_into(paths, out, sr=sr, num_samples=num_samples, col_offset=col_off,
+                                               num_threads=num_threads)
+            route = "native"
+        else:
+            ok, errors = _decode_python(paths, out, sr, num_samples, col_off, num_threads)
+            route = "python"
+        sp["failed"] = n - int(np.count_nonzero(ok))
+    load_wav_batch.routes[route] += 1
+    return LoadedBatch(out, ok, errors)
 
+
+def _decode_python(paths, out: np.ndarray, sr: int, num_samples: int, col_off: int,
+                   num_threads: int) -> Tuple[np.ndarray, List[Optional[str]]]:
+    """The pure-Python route of ``load_wav_batch``: ``utils.wavio`` on a
+    thread pool, each file into its row of ``out``."""
+    n = len(paths)
     ok = np.zeros(n, bool)
     errors: List[Optional[str]] = [None] * n
 
@@ -112,8 +125,7 @@ def load_wav_batch(
     if n:
         with ThreadPoolExecutor(max_workers=min(num_threads, n)) as ex:
             list(ex.map(work, range(n)))
-    load_wav_batch.routes["python"] += 1
-    return LoadedBatch(out, ok, errors)
+    return ok, errors
 
 
 load_wav_batch.routes = {"native": 0, "python": 0}  # batches decoded by each route
@@ -155,16 +167,23 @@ def iter_batches(
             b = b._replace(audio=transform(b.audio, start, n_valid))
         return b, n_valid
 
-    starts = list(range(0, len(paths), batch_size))
-    if len(starts) <= 1:
-        for s in starts:
-            yield load(s)
-        return
+    return prefetched(load, range(0, len(paths), batch_size))
 
+
+def prefetched(load: Callable, starts: Sequence[int]) -> Iterator:
+    """``load(s)`` for each ``s`` of ``starts`` in order, the next one run on
+    one background thread while the caller works on the current one (a
+    single start runs inline). The caller's wait for each is an
+    ``input_wait`` span whose ``id`` is its start, a batch's first row."""
+    starts = list(starts)
+    if len(starts) <= 1:
+        yield from (load(s) for s in starts)
+        return
     with ThreadPoolExecutor(max_workers=1) as ex:
         fut = ex.submit(load, starts[0])
-        for s in starts[1:]:
-            cur = fut.result()
-            fut = ex.submit(load, s)
+        for i, s in enumerate(starts):
+            with span("input_wait", id=s):
+                cur = fut.result()
+            if i + 1 < len(starts):
+                fut = ex.submit(load, starts[i + 1])
             yield cur
-        yield fut.result()

@@ -62,6 +62,7 @@ from anuraxla_torch.ops.mel_kernel import kernel_takes, phase_padded_layout
 from anuraxla_torch.parallel.encode import replicate
 from anuraxla_torch.parallel.mesh import batch_sharded, make_mesh, pad_to_multiple
 from anuraxla_torch.pipeline.dataset import iter_batches, scan_species_tree, subsample_paths
+from anuraxla_torch.utils.timing import span
 
 HOST_SLOTS = 3  # slots of a host ring: batch i+1 decodes while i transfers and i−1 may still be copying
 
@@ -113,8 +114,9 @@ class HostRing:
         with self._lock:
             k = self._next
             self._next = (k + 1) % len(self.bufs)
-        for done in self._sent[k]:
-            done.synchronize()
+        with span("slot_wait", events=len(self._sent[k])):
+            for done in self._sent[k]:
+                done.synchronize()
         self._sent[k] = []
         return k
 
@@ -306,10 +308,11 @@ class EncoderSession:
         ring = self._ring((audio.shape[0], row_len), torch.int16 if self.transfer_int16 else torch.float32)
         k = ring.claim_slot()
         window = ring.views[k][:, col : col + audio.shape[1]]
-        if self.transfer_int16 and audio.dtype != np.int16:
-            to_pcm16(audio, window)
-        else:
-            window[...] = audio
+        with span("stage", bytes=window.nbytes):
+            if self.transfer_int16 and audio.dtype != np.int16:
+                to_pcm16(audio, window)
+            else:
+                window[...] = audio
         return ring, k
 
     def _to_device(self, audio: np.ndarray) -> torch.Tensor:
@@ -334,16 +337,18 @@ class EncoderSession:
             audio, self.mel, parity=self.parity, backend=self.backend,
             rms_scale=scale, pre_padded=self._layout is not None,
         )
-        if q is not None:
-            return encoder_apply_quantized(q, self._enc_cfg, mel_to_encoder_input(mels))["mu"]
-        return enc(mel_to_encoder_input(mels))["mu"]
+        x = mel_to_encoder_input(mels)
+        with span("encoder", rows=x.shape[0]):
+            if q is not None:
+                return encoder_apply_quantized(q, self._enc_cfg, x)["mu"]
+            return enc(x)["mu"]
 
     def _dispatch(self, audio: np.ndarray) -> torch.Tensor:
         """Start the device computation for one batch without fetching. Over
         several data shards, a ragged batch is padded with zero rows to a
         multiple of their count (callers slice results to their own rows),
         and each shard's rows of the host slot go to its device."""
-        with torch.inference_mode():
+        with torch.inference_mode(), span("dispatch", rows=audio.shape[0]):
             if self._mesh is None:
                 return self._forward(self._to_device(audio))
             audio, _ = pad_to_multiple(audio, self._mesh.shape["data"])
@@ -359,7 +364,9 @@ class EncoderSession:
     def encode_array(self, audio: np.ndarray) -> np.ndarray:
         """[B, num_samples] (or pre-padded) waveforms -> [B, D] latents."""
         audio = self._inject_noise(np.ascontiguousarray(audio, np.float32), 0, audio.shape[0])
-        return self._dispatch(audio).cpu().numpy()[: audio.shape[0]]
+        z = self._dispatch(audio)
+        with span("fetch", rows=audio.shape[0]):
+            return z.cpu().numpy()[: audio.shape[0]]
 
     def decoded_batches(self, paths: Sequence[Path]):
         """``iter_batches`` over ``paths`` as ``encode_paths`` runs it: each
@@ -386,14 +393,19 @@ class EncoderSession:
             errors[pos : pos + n_valid] = batch.errors[:n_valid]
             cur = (self._dispatch(batch.audio), pos, n_valid)
             if pending is not None:
-                z, p0, nv = pending
-                Z[p0 : p0 + nv] = z.cpu().numpy()[:nv]
+                self._fetch(pending, Z)
             pending = cur
             pos += n_valid
         if pending is not None:
-            z, p0, nv = pending
-            Z[p0 : p0 + nv] = z.cpu().numpy()[:nv]
+            self._fetch(pending, Z)
         return Z, ok, errors
+
+    @staticmethod
+    def _fetch(pending: tuple, Z: np.ndarray) -> None:
+        """A dispatched batch's latents -> their rows of ``Z`` (the host waits for the device here)."""
+        z, p0, nv = pending
+        with span("fetch", id=p0, rows=nv):
+            Z[p0 : p0 + nv] = z.cpu().numpy()[:nv]
 
 
 def cache_path_for(cache_dir: Path, chunks_dir: Path, species: str, tag: str = "") -> Path:

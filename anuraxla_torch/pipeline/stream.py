@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import csv
 import dataclasses
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Iterator, List, Optional
 
@@ -22,8 +21,9 @@ import torch
 
 from anuraxla_torch.ops.frontend import rms_normalize_np
 from anuraxla_torch.pipeline.benchmark import detector_from_config
+from anuraxla_torch.pipeline.dataset import prefetched
 from anuraxla_torch.pipeline.session import EncoderSession
-from anuraxla_torch.utils.timing import stage_timer
+from anuraxla_torch.utils.timing import maybe_trace, span, stage_timer
 from anuraxla_torch.utils.wavio import WavStream, resample, write_wav
 
 
@@ -106,41 +106,34 @@ def fleet_window_batches(
         sched.extend(
             (fi, s) for s in range(0, max(st.num_frames - 1, 1), src_hop)
         )
-    chunks = [sched[i : i + batch_size] for i in range(0, len(sched), batch_size)]
 
-    def load(chunk: List[tuple[int, int]]):
-        batch = np.zeros((batch_size, row_len), dtype)
-        for j, (fi, s) in enumerate(chunk):
-            st = streams[fi]
-            if emit_int16:
-                y = st.read_i16(s, num_samples)
-            elif st.sr != target_sr:
-                scale = st.sr / target_sr
-                y = resample(st.read(s, int(round(num_samples * scale))),
-                             st.sr, target_sr)
-                y = y[:num_samples]
-                if y.shape[0] < num_samples:
-                    y = np.pad(y, (0, num_samples - y.shape[0]))
-            else:
-                y = st.read(s, num_samples)
-            batch[j, off : off + num_samples] = y
-        if normalize:
-            _rms_normalize_rows(batch[:, off : off + num_samples])
+    def load(start: int):
+        chunk = sched[start : start + batch_size]
+        with span("extract", id=start, windows=len(chunk)):
+            batch = np.zeros((batch_size, row_len), dtype)
+            for j, (fi, s) in enumerate(chunk):
+                st = streams[fi]
+                if emit_int16:
+                    y = st.read_i16(s, num_samples)
+                elif st.sr != target_sr:
+                    scale = st.sr / target_sr
+                    y = resample(st.read(s, int(round(num_samples * scale))),
+                                 st.sr, target_sr)
+                    y = y[:num_samples]
+                    if y.shape[0] < num_samples:
+                        y = np.pad(y, (0, num_samples - y.shape[0]))
+                else:
+                    y = st.read(s, num_samples)
+                batch[j, off : off + num_samples] = y
+            if normalize:
+                _rms_normalize_rows(batch[:, off : off + num_samples])
         return batch, np.asarray(chunk, np.int64).reshape(-1, 2), len(chunk)
 
-    if not prefetch or len(chunks) <= 1:
-        for c in chunks:
-            yield load(c)
-        return
-
+    starts = range(0, len(sched), batch_size)
+    if not prefetch:
+        return (load(s) for s in starts)
     # one worker: every WavStream read stays on one thread, in order
-    with ThreadPoolExecutor(max_workers=1) as ex:
-        fut = ex.submit(load, chunks[0])
-        for nxt in chunks[1:]:
-            cur = fut.result()
-            fut = ex.submit(load, nxt)
-            yield cur
-        yield fut.result()
+    return prefetched(load, starts)
 
 
 def scan_soundscape(
@@ -204,8 +197,9 @@ def scan_soundscapes(
     out: dict = {p: [] for p in wav_paths}
     n_windows = 0
 
-    def emit(res, tags, n_valid):
-        det, win, best = (x.cpu().numpy() for x in res)
+    def emit(res, tags, n_valid, first):
+        with span("fetch", id=first, rows=n_valid):
+            det, win, best = (x.cpu().numpy() for x in res)
         for j in range(n_valid):
             fi, s = int(tags[j, 0]), int(tags[j, 1])
             t0 = s / streams[fi].sr
@@ -226,7 +220,7 @@ def scan_soundscapes(
     # batch i−1's decisions
     host_norm = normalize and not session.normalize_on_device
     pending = None
-    with stage_timer("scan", log=None) as t:
+    with maybe_trace("scan_soundscapes"), stage_timer("scan", log=None) as t:
         for batch, tags, n_valid in fleet_window_batches(
             streams,
             num_samples=mel.num_samples,
@@ -242,7 +236,7 @@ def scan_soundscapes(
                 res = decide(session._dispatch(batch))
             if pending is not None:
                 emit(*pending)
-            pending = (res, tags, n_valid)
+            pending = (res, tags, n_valid, n_windows)
             n_windows += n_valid
         if pending is not None:
             emit(*pending)
