@@ -14,7 +14,11 @@ computes the fused RMS scale over the valid slice, the log-mel frontend
 weights quantized once at ``load`` and activation scales taken per row).
 Two batches are in flight: batch i−1's latents are fetched only after batch
 i is dispatched, while batch i+1 decodes. ``encode_array`` copies its rows
-into a slot (PCM16-converted with ``transfer_int16``).
+into a slot (PCM16-converted with ``transfer_int16``). A fleet scan of PCM16
+recordings hands ``_dispatch`` its batches as ``WindowSpans`` instead: a
+slot of the session's int16 span ring holding each batch's source samples
+once, which one kernel expands into the rows on the device
+(``ops.window_expand``).
 
 ``data_parallel=True`` splits each batch over this process's data shards
 (``parallel.mesh.make_mesh(local=True)``: the visible cards;
@@ -45,7 +49,7 @@ import random as pyrandom
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +63,7 @@ from anuraxla_torch.ops.frontend import (
     BACKENDS, arithmetic_backend, log_mel_batch, mel_to_encoder_input, rms_scale_batch,
 )
 from anuraxla_torch.ops.mel_kernel import kernel_takes, phase_padded_layout
+from anuraxla_torch.ops.window_expand import slot_size, window_expand
 from anuraxla_torch.parallel.encode import replicate
 from anuraxla_torch.parallel.mesh import batch_sharded, make_mesh, pad_to_multiple
 from anuraxla_torch.pipeline.dataset import iter_batches, scan_species_tree, subsample_paths
@@ -93,7 +98,7 @@ class HostRing:
     zeroed; writers fill only the sample window of a row, so the pre-padded
     layout's pad columns stay zero."""
 
-    def __init__(self, shape: Tuple[int, int], dtype: torch.dtype, device: torch.device):
+    def __init__(self, shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device):
         self.device = device
         self.bufs = [torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda") for _ in range(HOST_SLOTS)]
         self.views = [b.numpy() for b in self.bufs]
@@ -102,7 +107,7 @@ class HostRing:
         self._lock = threading.Lock()
 
     @property
-    def shape(self) -> Tuple[int, int]:
+    def shape(self) -> Tuple[int, ...]:
         return tuple(self.bufs[0].shape)
 
     def claim(self) -> np.ndarray:
@@ -139,6 +144,18 @@ class HostRing:
         done.record(torch.cuda.current_stream(dev))
         self._sent[k].append(done)
         return out
+
+
+class WindowSpans(NamedTuple):
+    """A batch of analysis windows as the PCM16 source runs they are cut
+    from (``pipeline.stream.fleet_span_batches``): slot ``k`` of ``ring``
+    holds the rows' table, then the runs (``ops.window_expand``), its first
+    ``n`` int16 values in use; ``rows`` is the batch size."""
+
+    ring: HostRing
+    k: int
+    n: int
+    rows: int
 
 
 @dataclasses.dataclass
@@ -201,6 +218,7 @@ class EncoderSession:
         self._q = quantize_encoder(params, cfg, device=self._dev) if self.quantize else None
         self.latent_dim = cfg.latent_dim
         self._rings: Dict[torch.dtype, HostRing] = {}
+        self._span_ring: Optional[HostRing] = None
         self._mesh = None
         if self.data_parallel:
             mesh = make_mesh(device=self._dev, local=True)  # encode stays process-local
@@ -292,6 +310,15 @@ class EncoderSession:
             ring = self._rings[dtype] = HostRing(tuple(shape), dtype, self._dev)
         return ring
 
+    def span_ring(self) -> HostRing:
+        """The session's int16 ring of window spans (``WindowSpans``): a slot
+        holds a batch's table and up to ``batch_size`` whole windows of source
+        samples, the most a batch can need."""
+        n = slot_size(self.batch_size, self.batch_size * self.mel.num_samples)
+        if self._span_ring is None or self._span_ring.shape != (n,):
+            self._span_ring = HostRing((n,), torch.int16, self._dev)
+        return self._span_ring
+
     def _to_slot(self, audio: np.ndarray) -> Tuple[HostRing, int]:
         """Host rows -> (a host ring, the index of its slot holding them). A
         slot of the f32 ring (``encode_paths`` decoded into it) is used as it
@@ -323,7 +350,7 @@ class EncoderSession:
         """The device forward of one batch (``replica``: a data shard's
         (encoder, int8 weights); default the session's own)."""
         enc, q = replica or (self._enc, self._q)
-        if self.transfer_int16:
+        if audio.dtype == torch.int16:
             audio = audio.to(torch.float32) / 32768.0
         scale = None
         if self.normalize_on_device:
@@ -343,12 +370,22 @@ class EncoderSession:
                 return encoder_apply_quantized(q, self._enc_cfg, x)["mu"]
             return enc(x)["mu"]
 
-    def _dispatch(self, audio: np.ndarray) -> torch.Tensor:
-        """Start the device computation for one batch without fetching. Over
-        several data shards, a ragged batch is padded with zero rows to a
-        multiple of their count (callers slice results to their own rows),
-        and each shard's rows of the host slot go to its device."""
-        with torch.inference_mode(), span("dispatch", rows=audio.shape[0]):
+    def _dispatch(self, audio: "np.ndarray | WindowSpans") -> torch.Tensor:
+        """Start the device computation for one batch — host rows, or
+        ``WindowSpans`` whose slot the device expands into rows
+        (``ops.window_expand``) — without fetching. Over several data shards,
+        a ragged batch of rows is padded with zero rows to a multiple of their
+        count (callers slice results to their own rows), and each shard's
+        rows of the host slot go to its device; spans are refused there, since
+        one device would expand and encode every row."""
+        spans = isinstance(audio, WindowSpans)
+        if spans and self._mesh is not None:
+            raise ValueError("WindowSpans reach no data shards: a data-parallel session takes host rows")
+        with torch.inference_mode(), span("dispatch", rows=audio.rows if spans else audio.shape[0]):
+            if spans:
+                row_len, col = self._layout or (self.mel.num_samples, 0)
+                slot = audio.ring.send(audio.k, 0, audio.n)
+                return self._forward(window_expand(slot, audio.rows, self.mel.num_samples, row_len, col))
             if self._mesh is None:
                 return self._forward(self._to_device(audio))
             audio, _ = pad_to_multiple(audio, self._mesh.shape["data"])

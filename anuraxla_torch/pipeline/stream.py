@@ -4,6 +4,12 @@
 long recordings cut into overlapping analysis windows, packed into fixed
 [B, row_len] batches, encoded and decided on the session's device.
 
+Where every recording is PCM16 mono at the mel rate and nothing normalizes
+on the host, the scan cuts its windows on the device instead
+(``fleet_span_batches``): each batch's source samples cross the link once,
+as int16, and ``ops.window_expand`` cuts the rows there, bit for bit the
+host's rows.
+
 The reference caps every input at ``chunk_seconds`` (``map_detector_core.py:
 212-217``); here a recording of any length is scanned in place, and a fleet of
 recordings shares the device batches (windows tagged by source file).
@@ -20,9 +26,10 @@ import numpy as np
 import torch
 
 from anuraxla_torch.ops.frontend import rms_normalize_np
+from anuraxla_torch.ops.window_expand import slot_size, split_slot
 from anuraxla_torch.pipeline.benchmark import detector_from_config
 from anuraxla_torch.pipeline.dataset import prefetched
-from anuraxla_torch.pipeline.session import EncoderSession
+from anuraxla_torch.pipeline.session import EncoderSession, HostRing, WindowSpans
 from anuraxla_torch.utils.timing import maybe_trace, span, stage_timer
 from anuraxla_torch.utils.wavio import WavStream, resample, write_wav
 
@@ -109,7 +116,7 @@ def fleet_window_batches(
 
     def load(start: int):
         chunk = sched[start : start + batch_size]
-        with span("extract", id=start, windows=len(chunk)):
+        with span("extract", id=start, windows=len(chunk), on_device=0):
             batch = np.zeros((batch_size, row_len), dtype)
             for j, (fi, s) in enumerate(chunk):
                 st = streams[fi]
@@ -134,6 +141,71 @@ def fleet_window_batches(
         return (load(s) for s in starts)
     # one worker: every WavStream read stays on one thread, in order
     return prefetched(load, starts)
+
+
+def takes_spans(streams: List[WavStream], *, target_sr: int, batch_size: int, num_samples: int) -> bool:
+    """Whether a fleet's windows can travel as source spans
+    (``fleet_span_batches``): every stream PCM16 mono at ``target_sr``, and a
+    slot's offsets within int32."""
+    return (slot_size(batch_size, batch_size * num_samples) < 2**31
+            and all(st.is_pcm16_mono and st.sr == target_sr for st in streams))
+
+
+def fleet_span_batches(
+    streams: List[WavStream],
+    *,
+    num_samples: int,
+    hop_samples: int,
+    batch_size: int,
+    ring: HostRing,
+) -> Iterator[tuple[WindowSpans, np.ndarray, int]]:
+    """The batches of :func:`fleet_window_batches` — the same windows, tags
+    and ``n_valid`` — for PCM16 mono streams at the target rate
+    (``takes_spans``), each as ``WindowSpans`` in a slot of ``ring`` (the
+    session's ``span_ring``) instead of [B, row_len] rows.
+
+    The batch's windows are merged into disjoint runs of source samples, per
+    file in schedule order (overlapping windows share one run; a hop longer
+    than the window leaves one run a window), and the runs copied from each
+    file's memmap into the slot, raw int16, each sample once. Ahead of them
+    the slot holds the table: each row's offset into the runs and its valid
+    length (shorter past EOF; 0 for rows past the batch's windows). The
+    device expands the slot into the rows the host route builds
+    (``ops.window_expand``). Batches are made on one background thread, one
+    ahead; a slot is claimed once the transfer that last read it is done,
+    so the consumer sends each batch before it takes the next two."""
+    if not all(st.is_pcm16_mono for st in streams):
+        raise ValueError("fleet_span_batches needs PCM16 mono streams")
+    if ring.shape[0] < slot_size(batch_size, batch_size * num_samples):
+        raise ValueError(f"a ring slot of {ring.shape[0]} int16 values cannot hold {batch_size} windows")
+    sched = [(fi, s) for fi, st in enumerate(streams) for s in range(0, max(st.num_frames - 1, 1), hop_samples)]
+
+    def load(start: int):
+        chunk = sched[start : start + batch_size]
+        with span("extract", id=start, windows=len(chunk), on_device=1) as sp:
+            runs: List[list] = []  # [file, first sample, end]
+            which = []  # each window's run
+            for fi, s in chunk:
+                stop = min(s + num_samples, streams[fi].num_frames)
+                if runs and runs[-1][0] == fi and s <= runs[-1][2]:
+                    runs[-1][2] = max(runs[-1][2], stop)
+                else:
+                    runs.append([fi, s, stop])
+                which.append(len(runs) - 1)
+            at = np.cumsum([0] + [b - a for _, a, b in runs])  # each run's offset into the runs
+            k = ring.claim_slot()
+            table, body = (t.numpy() for t in split_slot(ring.bufs[k], batch_size))
+            table[:] = 0
+            for j, ((fi, s), r) in enumerate(zip(chunk, which)):
+                table[j] = (at[r] + s - runs[r][1], min(s + num_samples, streams[fi].num_frames) - s)
+            with span("stage", bytes=2 * int(at[-1])):
+                for (fi, a, b), p in zip(runs, at):
+                    body[p : p + b - a] = streams[fi].read_i16(a, b - a)
+            sp["samples"] = int(at[-1])
+        tags = np.asarray(chunk, np.int64).reshape(-1, 2)
+        return WindowSpans(ring, k, slot_size(batch_size, int(at[-1])), batch_size), tags, len(chunk)
+
+    return prefetched(load, range(0, len(sched), batch_size))
 
 
 def scan_soundscape(
@@ -169,7 +241,9 @@ def scan_soundscapes(
     source file).
 
     Returns ({path: [Detection...]}, stats) with stats carrying n_files /
-    total_audio_seconds / wall_seconds / realtime_x (aggregate) / n_windows.
+    total_audio_seconds / wall_seconds / realtime_x (aggregate) / n_windows /
+    windows_on_device (the windows cut on the device from source spans:
+    all of them or none).
     """
     if session.add_noise_db is not None:
         # the scan dispatches windows directly (no _inject_noise leg), so a
@@ -217,11 +291,18 @@ def scan_soundscapes(
     # thread extracts (and, without normalize_on_device, normalizes) window
     # batch i+1, the device runs encode + decide for batch i — decide chained
     # after the encode, no host sync between them — and the host fetches
-    # batch i−1's decisions
+    # batch i−1's decisions. PCM16 mono fleets at the mel rate ship source
+    # spans and cut the windows on the device, unless the host normalizes
+    # or the batch is split over data shards.
     host_norm = normalize and not session.normalize_on_device
-    pending = None
-    with maybe_trace("scan_soundscapes"), stage_timer("scan", log=None) as t:
-        for batch, tags, n_valid in fleet_window_batches(
+    on_device = (not host_norm and session._mesh is None
+                 and takes_spans(streams, target_sr=mel.sr, batch_size=session.batch_size,
+                                 num_samples=mel.num_samples))
+    if on_device:
+        batches = fleet_span_batches(streams, num_samples=mel.num_samples, hop_samples=hop_samples,
+                                     batch_size=session.batch_size, ring=session.span_ring())
+    else:
+        batches = fleet_window_batches(
             streams,
             num_samples=mel.num_samples,
             hop_samples=hop_samples,
@@ -231,7 +312,10 @@ def scan_soundscapes(
             layout=session._layout,
             # PCM16-mono sources on an int16 link: ship the raw samples
             emit_int16=session.transfer_int16,
-        ):
+        )
+    pending = None
+    with maybe_trace("scan_soundscapes"), stage_timer("scan", log=None) as t:
+        for batch, tags, n_valid in batches:
             with torch.inference_mode():
                 res = decide(session._dispatch(batch))
             if pending is not None:
@@ -254,6 +338,7 @@ def scan_soundscapes(
         "wall_seconds": t.seconds,
         "realtime_x": realtime,
         "n_windows": n_windows,
+        "windows_on_device": n_windows if on_device else 0,
     }
     return out, stats
 

@@ -58,8 +58,13 @@ failure exits non-zero):
    ``--extract-dir``, then ``--no-normalize`` on pre-normalized audio): planted
    windows detected as their species, the first batch equal to
    ``encode_array`` on the card, 32 windows' parity-tier latents equal to the
-   CPU's; times of the benchmark's encode, the device sweep, each grid point
-   and the scan (windows/s, x realtime, extract and device ms a batch);
+   CPU's; the scan's span route (``fleet_span_batches`` into the session's
+   int16 ring, ``window_expand`` once a scan batch, never in another step):
+   the wrapper at B = 1024 with the session's pre-padded layout bit for bit
+   its plain version and the host route's rows, on the scan's batch and on a
+   full one; times of the benchmark's encode, the device sweep, each grid
+   point, ``window_expand`` (CUDA events, with its bound) and the scan
+   (windows/s, x realtime, the span route's extract and device ms a batch);
 7. the training path at full width (``DEFAULT_MEL``, default ``VAEConfig`` with
    its native decoder, B = 64) from a project root: ``make-synth-data`` (4
    species x 24 WAVs a split), ``train-vae`` (``--ckpt-dir --save-decoder``, KL
@@ -164,8 +169,8 @@ failure exits non-zero):
 12. print the kernels line (``mel_power_ct``'s also with its launches on the
    fit path, the parallel path, the pipeline path, it and
    ``mel_power_ct_bf16`` on the training path; every kernel's on the
-   evaluation path), the card's name and power limit, and last the device
-   line.
+   evaluation path; ``window_expand``'s launches are the evaluation path's),
+   the card's name and power limit, and last the device line.
 
 ``--dense-checkpoints`` is a diagnostic: it also times the dense kernel between
 the phases and, last, with its fragment tables uploaded again at other
@@ -238,6 +243,9 @@ KERNELS = {
                                 f"{PF}:513 (_ct_outer_stage_fused, exact=False :542-562)"),
 }
 FUSED = ("mel_power_ct_fused", "mel_power_ct_fused_bf16")  # launched by the study path alone
+# the fleet scan's window expansion (source spans -> rows), held and timed on the evaluation path
+WINDOW_EXPAND = ("anuraxla_torch/csrc/window_expand.cu",
+                 "none: the JAX package cuts windows on the host (anuraxla/pipeline/stream.py fleet_window_batches)")
 
 
 def log(msg: str) -> None:
@@ -1314,8 +1322,10 @@ def phase_eval_path(seed: int, root: Path) -> dict:
     every val file) and the fleet scan (``scan-soundscape --root``, 4
     recordings x 10 min with planted calls, hop 2.5 s: once with the RMS fused
     into the mel kernel, once with ``--no-normalize`` on the same audio
-    pre-normalized). Each result is held to the
-    same computation on the CPU from the card's latents. -> {"launches":
+    pre-normalized; both cut their windows on the card, ``window_expand``
+    once a batch). Each result is held to the
+    same computation on the CPU from the card's latents; the span route's
+    rows to the host route's. -> {"launches":
     {kernel: launches on the path}, "times": {...}}."""
     import argparse as ap
     import csv
@@ -1333,12 +1343,13 @@ def phase_eval_path(seed: int, root: Path) -> dict:
     from anuraxla_torch.detect.gaussian_map import fit_map, map_decide
     from anuraxla_torch.detect.radial import RadialFit, fit_radial, radial_decide
     from anuraxla_torch.ops.mel_kernel import mel_power, reset_launches
+    from anuraxla_torch.ops.window_expand import window_expand, window_expand_plain
     from anuraxla_torch.pipeline.benchmark import run_folder_benchmark
     from anuraxla_torch.pipeline.fit import encode_augmented_tree
     from anuraxla_torch.pipeline.session import (
         EncoderSession, concat_species_latents, encode_species_tree, pad_species_latents,
     )
-    from anuraxla_torch.pipeline.stream import fleet_window_batches, scan_soundscapes
+    from anuraxla_torch.pipeline.stream import fleet_span_batches, fleet_window_batches, scan_soundscapes
     from anuraxla_torch.probes.common import card_line
     from anuraxla_torch.utils.wavio import WavStream
 
@@ -1357,20 +1368,23 @@ def phase_eval_path(seed: int, root: Path) -> dict:
     tier = ["--config", str(cfg_path), "--encoder", str(enc_dir), "--serving-tier", "balanced", "--pre-padded-host",
             "--io-threads", "8"]
     balanced = session_kwargs(ap.Namespace(serving_tier="balanced", batch_size=64, io_threads=8, pre_padded_host=True))
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys([*KERNELS, "window_expand"], 0)
     times = {}
+    scan_batches = -(-SCAN_FILES * int(SCAN_SECONDS / SCAN_HOP_S) // TIMING_B)  # a scan's batches
 
     def step(name: str, main, argv: list) -> str:
         """One CLI run, launch counts set to 0 just before and read just
-        after; -> its standard output (also logged)."""
+        after; -> its standard output (also logged). A scan launches
+        ``window_expand`` once a batch, every other step never."""
         buf = io.StringIO()
         reset_launches()
+        window_expand.launches = 0
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             main(argv)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = dict(mel_power.launches)
+        counts = {**mel_power.launches, "window_expand": window_expand.launches}
         for line in buf.getvalue().splitlines():
             if line.startswith(("✅", "⏱️", "🎯", "💾 on-device", "⚠️", "GLOBAL", "- ")) or "windows" in line:
                 log(f"[eval-path]   {line.replace(str(root), '<project>')}")
@@ -1379,6 +1393,9 @@ def phase_eval_path(seed: int, root: Path) -> dict:
             raise AssertionError(f"eval path, {name}: mel_power_ct was not launched")
         if any(counts[k] for k in FUSED):
             raise AssertionError(f"eval path, {name}: a serving path launched the study's split kernel: {counts}")
+        if counts["window_expand"] != (scan_batches if name.startswith("scan-soundscape") else 0):
+            raise AssertionError(f"eval path, {name}: window_expand launched {counts['window_expand']} times, "
+                                 f"not once a scan batch ({scan_batches})")
         for k in launches:
             launches[k] += counts[k]
         times[f"{name} s"] = dt
@@ -1589,15 +1606,76 @@ def phase_eval_path(seed: int, root: Path) -> dict:
         log(f"[eval-path] parity tier, {SCAN_PARITY_ROWS} scan windows (fused RMS, pre-padded) card vs CPU: "
             f"max|diff| {np.abs(Zp - Zc).max():.3e} (rtol 5e-4, atol 2e-5)")
 
-        # the scan timed on a warm session, and its parts
+        # the span route at the main path's shape (B 1024, the session's pre-padded layout): the scan's
+        # batch as source spans in the session's pinned int16 ring, expanded on the card by the wrapper,
+        # bit for bit its plain version and the host route's rows above (n_valid < B: zero rows past it)
+        row_len, col = ssess._layout
+        spans1, stags, snv = next(iter(fleet_span_batches(
+            [WavStream(p) for p in wavs], num_samples=cfg.num_samples, hop_samples=hop, batch_size=TIMING_B,
+            ring=ssess.span_ring())))
+        slot = spans1.ring.send(spans1.k, 0, spans1.n)
+        window_expand.launches = 0
+        got = window_expand(slot, TIMING_B, cfg.num_samples, row_len, col)
+        want = window_expand_plain(slot, TIMING_B, cfg.num_samples, row_len, col)
+        host = torch.from_numpy(batch).cuda()
+        same = (torch.equal(got, want) and torch.equal(got, host) and np.array_equal(stags, tags)
+                and snv == n_valid and window_expand.launches == 1)
+        # and a full batch (1024 windows of one source at the scan's hop), as the scan cell's batches are
+        L = cfg.num_samples
+        runs = torch.from_numpy(np.random.default_rng([seed, 8]).integers(
+            -32768, 32768, (TIMING_B - 1) * hop + L, dtype=np.int16))
+        runs[:2] = torch.tensor([-32768, 32767], dtype=torch.int16)
+        table = np.stack([np.arange(TIMING_B) * hop, np.full(TIMING_B, L)], 1).astype(np.int32)
+        full = torch.cat([torch.from_numpy(table.view(np.int16).ravel()), runs]).cuda()
+        got_full = window_expand(full, TIMING_B, L, row_len, col)
+        want_full = window_expand_plain(full, TIMING_B, L, row_len, col)
+        same_full = torch.equal(got_full, want_full) and torch.equal(
+            got_full[1, col : col + L].cpu(), runs[hop : hop + L].float() / 32768)
+        log(f"[eval-path] window_expand at B={TIMING_B} x {row_len} (pre-padded, signal at {col}): the scan's batch "
+            f"({snv} windows) bitwise its plain version, the host route's rows, tags and n_valid {same}; a full batch "
+            f"bitwise its plain version {same_full}")
+        if not (same and same_full and not got[snv:].any() and not got[:, :col].any()):
+            raise AssertionError("window_expand differs from its plain version or the host route's rows")
+        del got, want, host, got_full, want_full
+
+        def event_ms(fn, reps: int) -> float:
+            fn()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            return a.elapsed_time(b) / reps
+
+        we_ms = event_ms(lambda: window_expand(full, TIMING_B, L, row_len, col), 50)
+        we_plain_ms = event_ms(lambda: window_expand_plain(full, TIMING_B, L, row_len, col), 3)
+        we_bytes = TIMING_B * row_len * 4 + full.numel() * 2  # rows written once, table and runs read once
+        we_bound = we_bytes / PEAK_BYTES_PER_S * 1e3
+        times["window_expand"] = {
+            "config": f"DEFAULT_MEL B={TIMING_B} x {row_len} pre-padded (signal at {col}), 5 s windows at a "
+                      f"{SCAN_HOP_S} s hop", "ms": we_ms, "plain_ms": we_plain_ms, "bound_ms": we_bound}
+        log(f"[times] window_expand, B={TIMING_B} x {row_len} pre-padded, 5 s windows at a {SCAN_HOP_S} s hop: "
+            f"{we_ms:.4f} ms (CUDA events, 50 launches), plain {we_plain_ms:.3f} ms; bound {we_bound:.4f} ms by bytes "
+            f"({we_bytes / 1e9:.4f} GB: rows written once, runs read once) = {100 * we_bound / we_ms:.2f}% of bound; "
+            f"{smi}")
+        del full
+
+        # the scan timed on a warm session (span route: window_expand once a batch), and its parts
         for _ in range(2):  # the first run warms the page cache and the allocator
             torch.cuda.synchronize()
+            window_expand.launches = 0
             _, stats = scan_soundscapes(wavs, ssess, detector="radial", config=cfg1, hop_seconds=SCAN_HOP_S,
                                         log=lambda *a: None)
+            if stats["windows_on_device"] != stats["n_windows"] or window_expand.launches != scan_batches:
+                raise AssertionError(f"the warm scan took the host route: {stats}, window_expand launched "
+                                     f"{window_expand.launches} times for {scan_batches} batches")
+            launches["window_expand"] += window_expand.launches
         t0 = time.perf_counter()
-        batch1 = next(iter(fleet_window_batches(
+        spans1 = next(iter(fleet_span_batches(
             [WavStream(p) for p in wavs], num_samples=cfg.num_samples, hop_samples=hop, batch_size=TIMING_B,
-            target_sr=cfg.sr, layout=ssess._layout, prefetch=False)))[0]
+            ring=ssess.span_ring())))[0]
         extract_ms = (time.perf_counter() - t0) * 1e3
         decide = lambda Z: radial_decide(Z, *on("cuda", cents, thr, priority_ranks(species)))  # noqa: E731
         dev_ms = []
@@ -1605,7 +1683,7 @@ def phase_eval_path(seed: int, root: Path) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with torch.inference_mode():
-                decide(ssess._dispatch(batch1))[0].cpu()
+                decide(ssess._dispatch(spans1))[0].cpu()
             dev_ms.append((time.perf_counter() - t0) * 1e3)
         times["scan windows/s"] = stats["n_windows"] / stats["wall_seconds"]
         times["scan realtime x"] = stats["realtime_x"]
@@ -1614,8 +1692,9 @@ def phase_eval_path(seed: int, root: Path) -> dict:
         log(f"[times] fleet scan, balanced tier, B={TIMING_B}, fused RMS, pre-padded rows: {stats['n_windows']} "
             f"windows of {stats['n_files']} recordings ({stats['total_audio_seconds'] / 3600:.3f} h) in "
             f"{stats['wall_seconds']:.3f} s = {times['scan windows/s']:.1f} windows/s, "
-            f"{stats['realtime_x']:.1f}x realtime; one batch: extract {extract_ms:.2f} ms (one thread, WavStream "
-            f"reads into a new array), copy + transfer + forward + decide + fetch {min(dev_ms):.2f} ms; {smi}")
+            f"{stats['realtime_x']:.1f}x realtime, all cut on the card; one batch: extract {extract_ms:.2f} ms (one "
+            f"thread, source spans copied into the pinned int16 slot), transfer + window_expand + forward + decide + "
+            f"fetch {min(dev_ms):.2f} ms; {smi}")
         del ssess, sess
         torch.cuda.empty_cache()
     return {"launches": launches, "times": times}
@@ -3236,7 +3315,8 @@ def main() -> None:
         sys.exit(1)
     # the port and its kernel sources must sit beside this script
     here = Path(__file__).resolve().parent
-    missing = [src for src, _ in (*KERNELS.values(), *INT8_KERNELS.values()) if not (here / src).is_file()]
+    missing = [src for src, _ in (*KERNELS.values(), *INT8_KERNELS.values(), WINDOW_EXPAND)
+               if not (here / src).is_file()]
     if missing:
         print(f"chip_smoke: no anuraxla_torch checkout beside {here} (missing {missing[0]})", file=sys.stderr)
         sys.exit(1)
@@ -3302,6 +3382,13 @@ def main() -> None:
                        "bound_by": q8["bound_by"], "tile": q8["tile"], "pr10_ms": t["pr10_ms"]},
             "torch_quantization_then_kernel_ms": t["route_ms"],
         })
+    t = evaluation["times"]["window_expand"]
+    kernels.append({
+        "name": "window_expand", "route": "cuda", "source": WINDOW_EXPAND[0], "replaces": WINDOW_EXPAND[1],
+        "config": t["config"], "launches": evaluation["launches"]["window_expand"], "max_abs_err": 0.0,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "tile": "256 threads x 4 columns, float4 stores",
+    })
     from anuraxla_torch.probes.common import card_line
 
     smi = card_line()

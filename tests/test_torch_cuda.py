@@ -6,8 +6,9 @@ and 2e-5 for the mean), launch counting
 by kernel and mode, the wrapper's refusals on a CUDA tensor, the sessions
 on the card against the same sessions on the CPU (``encode_paths`` through
 the pinned host slots too), the radial and MAP fits on the card against
-the same fits on the CPU, and the conv VAE's train step on the card against
-the same steps on the CPU.
+the same fits on the CPU, the conv VAE's train step on the card against
+the same steps on the CPU, and the window expansion kernel bit for bit its
+plain version, through the session against the host route's rows.
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. The
 card's machine has no JAX, so this file imports none and runs without the
@@ -26,6 +27,7 @@ from anuraxla_torch.cli import evaluate_wav as t_cli
 from anuraxla_torch.constants import DEFAULT_MEL, PRIORITY_ORDER, MelConfig
 from anuraxla_torch.ops import frontend as tfe
 from anuraxla_torch.ops import mel_kernel as tk
+from anuraxla_torch.ops.window_expand import window_expand, window_expand_plain
 from anuraxla_torch.pipeline.session import EncoderSession
 from anuraxla_torch.utils.wavio import read_wav, write_wav
 
@@ -887,3 +889,68 @@ def test_parallel_path_on_card_matches_single(card):
             assert float((mb - ma).abs().max()) <= 1e-4 * float(ma.abs().max()), (step, k)
     for (name, p), q in zip(plain.model.state_dict().items(), ss.state.model.state_dict().values()):
         torch.testing.assert_close(q, p, rtol=2e-3, atol=2e-4, msg=name)
+
+
+@pytest.mark.parametrize("layout", ["rows", "pre_padded", "odd_row"])
+@pytest.mark.parametrize("n_valid", [1024, 777])
+def test_window_expand_kernel_matches_plain(card, layout, n_valid):
+    """The kernel at the scan's batch (B 1 024 x 240 000, 5 s windows at a
+    2.5 s hop) equals its plain version bit for bit: two files, each with a
+    last window past its EOF, rows past ``n_valid`` zero; the pre-padded
+    layout, and a row length that is no multiple of 4 (scalar stores)."""
+    B, L = 1024, DEFAULT_MEL.num_samples
+    hop = L // 2
+    row_len, col = {"rows": (L, 0), "pre_padded": tk.phase_padded_layout(DEFAULT_MEL, DEFAULT_MEL.total_frames),
+                    "odd_row": (L + 3, 1)}[layout]
+    first = n_valid // 2
+    n1, n2 = (first - 1) * hop + L // 3, (n_valid - first - 1) * hop + L - 1000
+    rng = np.random.default_rng(13)
+    runs = rng.integers(-32768, 32768, n1 + n2, dtype=np.int16)
+    runs[:2] = (-32768, 32767)
+    table = np.zeros((B, 2), np.int32)
+    for j in range(n_valid):
+        base, end = (0, n1) if j < first else (n1, n1 + n2)
+        off = base + (j if j < first else j - first) * hop
+        table[j] = (off, min(off + L, end) - off)
+    slot = torch.from_numpy(np.concatenate([table.view(np.int16).ravel(), runs])).to(card)
+    n0 = window_expand.launches
+    got = window_expand(slot, B, L, row_len, col)
+    assert window_expand.launches == n0 + 1
+    want = window_expand_plain(slot, B, L, row_len, col)
+    torch.cuda.synchronize()
+    assert got.shape == (B, row_len) and torch.equal(got, want)
+    assert not got[n_valid:].any() and not got[:, :col].any()
+    assert torch.equal(got[0, col : col + L].cpu(), torch.from_numpy(runs[:L].astype(np.float32) / 32768))
+    assert int(table[first - 1, 1]) == L // 3 and not got[first - 1, col + L // 3 :].any()
+
+
+def test_window_spans_through_the_session_on_card(card, tmp_path):
+    """The scan's span route on the card: ``fleet_span_batches`` into the
+    session's pinned int16 ring, expanded by one kernel launch a batch, gives
+    the latents of the host route's rows (``fleet_window_batches``) bit for
+    bit; with the pre-padded layout and on the int16 link too; more batches
+    than slots, so every slot is written again after its transfer."""
+    from anuraxla_torch.pipeline.stream import fleet_span_batches, fleet_window_batches
+    from anuraxla_torch.utils.wavio import WavStream
+
+    cfg = DEFAULT_MEL.replace(duration=1.0)
+    rng = np.random.default_rng(14)
+    paths = []
+    for i, sec in enumerate((3.3, 2.1, 4.0)):
+        paths.append(tmp_path / f"r{i}.wav")
+        write_wav(paths[-1], (0.1 * rng.standard_normal(int(cfg.sr * sec))).astype(np.float32), cfg.sr)
+    hop = cfg.sr // 2
+    for kw in (dict(), dict(pre_padded_host=True), dict(transfer_int16=True)):
+        s = EncoderSession(mel=cfg, batch_size=4, normalize_on_device=True, init_seed=3, project_root=tmp_path,
+                           **kw).load()
+        args = dict(num_samples=cfg.num_samples, hop_samples=hop, batch_size=4)
+        n0, n = window_expand.launches, 0
+        spans = fleet_span_batches([WavStream(p) for p in paths], ring=s.span_ring(), **args)
+        rows = fleet_window_batches([WavStream(p) for p in paths], target_sr=cfg.sr, layout=s._layout, **args)
+        for (sp, tags, nv), (r, rtags, rnv) in zip(spans, rows):
+            z = s._dispatch(sp).cpu().numpy()
+            assert np.array_equal(tags, rtags) and nv == rnv
+            assert np.array_equal(z, s._dispatch(r).cpu().numpy()), (kw, n)
+            n += 1
+        assert n == 5 and window_expand.launches == n0 + n
+        assert all(b.is_pinned() for b in s._span_ring.bufs)

@@ -2,7 +2,9 @@
 ``WavStream`` and ``fleet_window_batches`` bit for bit (PCM16, float32,
 stereo, a 44.1 kHz source resampled, the pre-padded layout, the int16
 passthrough, host RMS normalization), ``write_detections_csv`` byte for
-byte, and the ``scan-soundscape --root`` CLI against the JAX package's
+byte, the span route (``fleet_span_batches`` expanded by
+``window_expand_plain``) bit for bit the host route's rows and where it
+engages, and the ``scan-soundscape --root`` CLI against the JAX package's
 ``scan_soundscapes`` on two recordings with planted calls: per-window
 decisions identical, scores within the latents' tolerance (rtol 5e-4 / atol
 2e-5, ``tests/test_torch_fit.py``), the same ``--extract-dir`` files. The
@@ -12,10 +14,13 @@ to the host one."""
 
 import csv
 import json
+import struct
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
 
 from anuraxla.constants import MelConfig as JMel
 from anuraxla.models.checkpoint import save_encoder as j_save_encoder
@@ -28,8 +33,11 @@ from anuraxla.utils import wavio as j_wavio
 from anuraxla_torch.cli import scan_soundscape as t_scan_cli
 from anuraxla_torch.constants import MelConfig
 from anuraxla_torch.ops.mel_kernel import phase_padded_layout
+from anuraxla_torch.ops.window_expand import slot_size, split_slot, window_expand_plain
+from anuraxla_torch.parallel import mesh as t_mesh
 from anuraxla_torch.pipeline import stream as t_stream
-from anuraxla_torch.pipeline.session import EncoderSession
+from anuraxla_torch.pipeline.session import EncoderSession, HostRing
+from anuraxla_torch.utils import timing
 from anuraxla_torch.utils import wavio as t_wavio
 
 SPECIES = ["Batrachyla_leptopus", "Batrachyla_taeniata", "Calyptocephalella_gayi", "Pleurodema_thaul"]
@@ -127,6 +135,118 @@ def test_fleet_window_batches_match_jax(tmp_path, case):
     assert all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) and a[2] == b[2] for a, b in zip(one, jone))
 
 
+SPAN_CASES = {  # name -> (recording lengths in samples, hop, batch size, pre-padded layout)
+    # batches cross file boundaries, each file's last window runs past EOF, the last batch is partial
+    "file_boundary": ([20000, 37000, 15000], 3000, 4, False),
+    "short_file": ([5000, 23000, 700], 2000, 3, False),  # whole files shorter than a window
+    "hop_longer_than_window": ([41000, 30000], 9000, 4, False),  # a run a window
+    "layout": ([26000, 17000], 4000, 5, True),
+}
+
+
+@pytest.mark.parametrize("case", list(SPAN_CASES))
+def test_span_rows_match_host_rows(tmp_path, case):
+    """The rows the span route's slots expand to (the plain twin) are the host
+    route's rows bit for bit, with the same tags and n_valid."""
+    lengths, hop, B, padded = SPAN_CASES[case]
+    rng = np.random.default_rng(7)
+    paths = [_write(tmp_path / f"r{i}.wav", (0.3 * rng.standard_normal(n)).astype(np.float32), SR, "PCM_16")
+             for i, n in enumerate(lengths)]
+    mel = MelConfig(**SMALL)
+    L = mel.num_samples
+    layout = phase_padded_layout(mel, mel.total_frames) if padded else None
+    row_len, col = layout or (L, 0)
+    ring = HostRing((slot_size(B, B * L),), torch.int16, torch.device("cpu"))
+    got = []
+    for spans, tags, nv in t_stream.fleet_span_batches([t_wavio.WavStream(p) for p in paths], num_samples=L,
+                                                      hop_samples=hop, batch_size=B, ring=ring):
+        slot = spans.ring.send(spans.k, 0, spans.n)  # expanded before the ring comes round
+        table, runs = split_slot(slot, B)
+        got.append((window_expand_plain(slot, B, L, row_len, col).numpy(), tags, nv, table[:, 1].tolist(),
+                    runs.numel()))
+    want = list(t_stream.fleet_window_batches([t_wavio.WavStream(p) for p in paths], num_samples=L,
+                                              hop_samples=hop, batch_size=B, target_sr=SR, layout=layout))
+    assert len(got) == len(want) > 1
+    for (rows, tags, nv, lens, samples), (wrows, wtags, wnv) in zip(got, want):
+        assert rows.dtype == wrows.dtype == np.float32 and rows.shape == (B, row_len)
+        assert np.array_equal(rows, wrows) and np.array_equal(tags, wtags) and nv == wnv
+        assert lens[nv:] == [0] * (B - nv) and samples <= sum(lens) <= B * L
+        assert hop < L or samples == sum(lens)
+    assert got[-1][2] < B  # a partial last batch
+    assert any(min(g[3][: g[2]]) < L for g in got)  # a window past EOF
+    if case == "file_boundary":
+        assert any(len(set(g[1][: g[2], 0])) > 1 for g in got)
+        assert any(g[4] < sum(g[3]) for g in got)  # overlapping windows share their samples
+    if padded:
+        assert col > 0 and not got[0][0][:, :col].any()
+
+
+def _write_pcm32(path: Path, y: np.ndarray, sr: int) -> Path:
+    """A mono PCM32 WAV (``write_wav`` writes PCM16 and float alone)."""
+    data = np.clip(np.round(y * 2147483648.0), -2147483648, 2147483647).astype("<i4").tobytes()
+    head = struct.pack("<4sI4s4sIHHIIHH4sI", b"RIFF", 36 + len(data), b"WAVE", b"fmt ", 16, 1, 1, sr, 4 * sr, 4, 32,
+                       b"data", len(data))
+    path.write_bytes(head + data)
+    return path
+
+
+ROUTE_CASES = {  # name -> (recording kind, session kwargs, scan's normalize, the span route engages)
+    "pcm16_device_rms": ("pcm16", {"normalize_on_device": True}, True, True),
+    "pcm16_no_normalize": ("pcm16", {}, False, True),
+    "pcm16_int16_link": ("pcm16", {"normalize_on_device": True, "transfer_int16": True}, True, True),
+    "resampled": ("pcm16_44k1", {"normalize_on_device": True}, True, False),
+    "stereo": ("stereo_pcm16", {"normalize_on_device": True}, True, False),
+    "pcm32": ("pcm32", {"normalize_on_device": True}, True, False),
+    "host_normalize": ("pcm16", {}, True, False),
+    "data_parallel": ("pcm16", {"normalize_on_device": True, "data_parallel": True}, True, False),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_span_route_engages(project, tmp_path, case):
+    """The scan cuts its windows on the device (``windows_on_device``, the
+    ``extract`` spans' ``on_device``) for PCM16 mono at the mel rate, and not
+    for a resampled, stereo or PCM32 fleet, host normalization or a
+    data-parallel session."""
+    root, _ = project
+    kind, extra, normalize, engages = ROUTE_CASES[case]
+    rng = np.random.default_rng(8)
+    paths = []
+    for i in range(2):
+        sr = 44100 if kind == "pcm16_44k1" else SR
+        y = (0.2 * rng.standard_normal((int(sr * (1.6 + 0.5 * i)), 2 if kind == "stereo_pcm16" else 1)))
+        y = y.astype(np.float32)[:, 0] if kind != "stereo_pcm16" else y.astype(np.float32)
+        p = tmp_path / f"r{i}.wav"
+        paths.append(_write_pcm32(p, y, sr) if kind == "pcm32" else _write(p, y, sr, "PCM_16"))
+    cfg = json.loads((root / "config.json").read_text())
+    if extra.get("data_parallel"):
+        t_mesh.set_default_devices(["cpu"] * 2)
+    try:
+        sess = EncoderSession(mel=MelConfig(**SMALL), backend="matmul", project_root=root, batch_size=4,
+                              device="cpu", **extra).load()
+        assert (sess._mesh is not None) == bool(extra.get("data_parallel"))
+        if sess._mesh is not None:  # the session itself refuses spans it would expand on one device
+            spans = next(iter(t_stream.fleet_span_batches(
+                [t_wavio.WavStream(p) for p in paths], num_samples=sess.mel.num_samples, hop_samples=SR // 4,
+                batch_size=4, ring=sess.span_ring())))[0]
+            with pytest.raises(ValueError, match="data shards"):
+                sess._dispatch(spans)
+        timing.clear_spans()
+        with profile(activities=[ProfilerActivity.CPU]):
+            _, stats = t_stream.scan_soundscapes(paths, sess, detector="radial", config=cfg, hop_seconds=0.25,
+                                                 normalize=normalize, log=lambda *a: None)
+        recs = [r for r in timing.spans() if r.name == "extract"]
+    finally:
+        t_mesh.set_default_devices(None)
+        timing.clear_spans()
+    assert stats["n_windows"] == 7 + 9 and len(recs) == 4  # batches of 4, one across the file boundary
+    assert stats["windows_on_device"] == (stats["n_windows"] if engages else 0)
+    assert [r.counts["on_device"] for r in recs] == [int(engages)] * 4
+    assert sum(r.counts["windows"] for r in recs) == stats["n_windows"]
+    if engages:  # overlapping windows: each source sample copied once
+        assert all(r.counts["samples"] < r.counts["windows"] * sess.mel.num_samples for r in recs)
+
+
 def test_detections_csv_is_the_references(tmp_path):
     rng = np.random.default_rng(3)
     rows = [(0.5 * i, 0.5 * i + 0.5, bool(rng.random() > 0.5), float(rng.standard_normal())) for i in range(12)]
@@ -195,9 +315,19 @@ def test_scan_soundscape_fleet_matches_jax(project, tmp_path, monkeypatch, capsy
     argv = ["--root", str(recs), "--hop-seconds", "0.5", "--out", str(tmp_path / "out"), "--extract-dir",
             str(tmp_path / "t_ext"), "--device", "cpu", "--frontend-backend", "matmul", "--batch-size", "16",
             *MEL_ARGS] + ([] if normalize else ["--no-normalize"])
+    scans = []
+
+    def scan(*a, **k):
+        per_file, stats = t_stream.scan_soundscapes(*a, **k)
+        scans.append(stats)
+        return per_file, stats
+
+    monkeypatch.setattr(t_scan_cli, "scan_soundscapes", scan)
     t_scan_cli.main(argv)
     out = capsys.readouterr().out
     assert "fleet scan: 2 recordings" in out
+    # PCM16 mono at the mel rate, no host normalization: the windows are cut from source spans
+    assert [s["windows_on_device"] for s in scans] == [s["n_windows"] for s in scans] == [80]
     cfg = json.loads((root / "config.json").read_text())
     wavs = sorted(recs.rglob("*.wav"))
     want, stats = j_stream.scan_soundscapes(wavs, js, detector="radial", config=cfg, hop_seconds=0.5,
