@@ -1,6 +1,8 @@
 """What the drivers share: the program's session as a cell's workload file
 sets it up, the detector block made from the plain reference, and the
-reference's latents in blocks.
+reference's latents in blocks. What belongs to the encoder (the port's
+config object, the seeded weights, the reference's latents) comes from the
+cell's family (``perfbench/families/``).
 
 A driver generates its traffic from the seed, builds the program's objects
 and warms them up (``setup``; with ``program=False`` the inputs, weights and
@@ -22,9 +24,9 @@ import numpy as np
 import torch
 
 from perfbench import synth
-from perfbench.reference import encoder as ref_encoder
 from perfbench.reference import lowp, mel as ref_mel, radial as ref_radial
 from perfbench.reference.audio import rms_normalize
+from perfbench.reference.encoder import no_tf32
 
 REF_BLOCK = 256  # rows of the reference at a time
 
@@ -34,9 +36,12 @@ def quiet(*_a, **_k) -> None:
 
 
 class Driver:
+    # the encoder families the driver runs; None: any
+    FAMILIES = None
+
     def __init__(self, cell, seed: int, device: torch.device, work: Path):
         self.cell, self.seed, self.dev, self.work = cell, int(seed), device, Path(work)
-        self.cfg, self.mix, self.wl = cell.cfg, cell.mix, cell.workload
+        self.cfg, self.mix, self.wl, self.family = cell.cfg, cell.mix, cell.workload, cell.family
         self.params = None
         self.session = None
         self.diag: Dict[str, object] = {}
@@ -47,14 +52,6 @@ class Driver:
 
         return MelConfig(**self.cfg["mel"])
 
-    def vae_config(self):
-        from anuraxla_torch.models.vae import VAEConfig
-
-        c = self.cfg
-        return VAEConfig(latent_dim=c["latent_dim"], widths=tuple(c["widths"]), dense_width=c["dense_width"],
-                         groups=c["groups"], input_hw=tuple(c["input_hw"]), conv_padding=c["conv_padding"],
-                         gn_eps=c["gn_eps"], activation=c["activation"], downsample=c["downsample"])
-
     def make_session(self):
         """The program's ``EncoderSession`` with the workload's knobs, loaded with the seed's weights."""
         from anuraxla_torch.pipeline.session import EncoderSession
@@ -62,13 +59,14 @@ class Driver:
         s = self.wl["session"]
         return EncoderSession(
             mel=self.mel_config(), batch_size=s["batch_size"], parity=not s["fast_frontend"],
-            backend=s["frontend_backend"], encoder_cfg=self.vae_config(), encoder_dtype=s["encoder_dtype"],
+            backend=s["frontend_backend"], encoder_cfg=self.family.program_config(self.cfg),
+            encoder_dtype=s["encoder_dtype"],
             pre_padded_host=s.get("pre_padded_host", False), normalize_on_device=s.get("normalize_on_device", False),
             num_threads=s["io_threads"], device=str(self.dev),
         ).load(params=self.params)
 
     def make_weights(self) -> None:
-        self.params = ref_encoder.make_params(self.cfg, self.seed, self.dev)
+        self.params = self.family.make_params(self.cfg, self.seed, self.dev)
 
     # -- the harness's hooks ----------------------------------------------
     # (module[:Class], attribute, range name): the program's layers a traced
@@ -108,10 +106,10 @@ class Driver:
                 y = torch.from_numpy(rows(i0, min(n, i0 + REF_BLOCK))).to(dev)
                 if normalize:
                     y = rms_normalize(y, self.cfg["rms"])
-                with ref_encoder.no_tf32():
+                with no_tf32():
                     m = ref_mel.log_mel(y, self.cfg["mel"], self.cfg["standardize_eps"], rounding=rmel)
-                out.append(ref_encoder.encode(p, m, self.cfg, rounding=rtrunk)["mu"].cpu())
-        return torch.cat(out) if out else torch.zeros((0, self.cfg["latent_dim"]))
+                out.append(self.family.encode(p, m, self.cfg, rounding=rtrunk).cpu())
+        return torch.cat(out) if out else torch.zeros((0, self.family.latent_dim(self.cfg)))
 
     def detector(self, rows: np.ndarray, labels: np.ndarray, *, normalize: bool) -> dict:
         """The detector block both sides read: centroids and radii fitted on

@@ -61,6 +61,7 @@ def worst(gaps: Dict[str, float]) -> float:
 
 
 class Driver(Base):
+    FAMILIES = ("conv-vae",)  # the reference and the port train the conv-VAE with its decoder
     RANGES = (("anuraxla_torch.pipeline.dataset", "load_wav_batch", "perfbench::decode"),
               ("anuraxla_torch.cli.train_vae", "log_mel_batch", "perfbench::mel"))
 
@@ -87,7 +88,7 @@ class Driver(Base):
                               kl_delay_steps=t["kl_delay_steps"], kl_warmup_steps=t["kl_warmup_steps"],
                               warmup_steps=t["warmup_steps"], total_steps=t["total_steps"], batch_size=self.B,
                               seed=self.seed)
-        self.vcfg = self.vae_config()
+        self.vcfg = self.family.program_config(self.cfg)
         self.model, self.state = create_train_state(self.vcfg, self.tc, init_params=self.params, device=self.dev)
         s = self.wl["session"]
         self.stream = mel_batch_stream(self.root, self.mel_config(), self.B, s["io_threads"], 0,

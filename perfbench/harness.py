@@ -4,7 +4,11 @@ check against the plain reference, and the result line.
 Everything that belongs to one configuration, traffic mix, cell or metric is
 found by name (``BENCHMARK.json`` names them):
 
-- ``perfbench/configs/<config>.json``: the model configuration as run;
+- ``perfbench/configs/<config>.json``: the model configuration as run; its
+  ``"family"`` (``conv-vae`` where it names none) names the encoder family
+  ``perfbench/families/<family>.py`` (``-`` read as ``_``), which gives the
+  port's encoder config, the seeded weights, the plain reference's latents,
+  the least work and the cut the CPU tests run (``perfbench/families/``);
 - ``perfbench/traffic/<traffic>.json``: a traffic mix, whose ``kind`` names
   the driver ``perfbench/drivers/<kind>.py`` that generates it and runs its
   passes;
@@ -18,6 +22,17 @@ found by name (``BENCHMARK.json`` names them):
 ``perfbench/held_back.json`` keeps, in BENCHMARK.json's form, cells whose
 runs spread too widely for a bound, with the metrics only they report: the
 benchmark does not run them, the CPU tests do.
+
+Adding a configuration of another family takes new files and entries and no
+edit to a file that is there: the family ``perfbench/families/<family>.py``
+(the six functions its package's docstring lists), the math of its plain
+reference ``perfbench/reference/<family>.py`` (importing nothing of the
+port), the configuration ``perfbench/configs/<config>.json`` with
+``"family"``, a workload ``perfbench/workloads/<cell>.json`` (and a traffic
+mix where none fits), and the entries in ``BENCHMARK.json``'s ``configs`` and
+``workloads`` and in the ``workloads`` of each metric the cell reports. The
+port must serve the family's config object. Training cells stay ``conv-vae``:
+a driver that needs one family (``FAMILIES``) refuses a cell of another.
 """
 
 from __future__ import annotations
@@ -33,12 +48,13 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from perfbench import devtrace
+from perfbench import devtrace, families
 
 PB = Path(__file__).resolve().parent
 ROOT = PB.parent
@@ -57,10 +73,18 @@ class Cell:
     cfg: dict
     mix: dict
     workload: dict
+    family: ModuleType  # the configuration's encoder family (``perfbench/families/``)
 
     @property
     def kind(self) -> str:
         return self.mix["kind"]
+
+
+def load_config(name: str, pb: Path = PB) -> dict:
+    """``configs/<name>.json`` under ``pb``, with the encoder's input size."""
+    cfg = load_json(pb / "configs" / f"{name}.json")
+    cfg["input_hw"] = [cfg["mel"]["target_frames"], cfg["mel"]["n_mels"]]
+    return cfg
 
 
 def load_cell(name: str, manifest: dict, pb: Path = PB) -> Cell:
@@ -68,10 +92,13 @@ def load_cell(name: str, manifest: dict, pb: Path = PB) -> Cell:
     entry = next((w for w in manifest["workloads"] if w["name"] == name), None)
     if entry is None:
         raise SystemExit(f"no workload named {name!r} in BENCHMARK.json")
-    cfg = load_json(pb / "configs" / f"{entry['config']}.json")
-    cfg["input_hw"] = [cfg["mel"]["target_frames"], cfg["mel"]["n_mels"]]
-    return Cell(name, entry, cfg, load_json(pb / "traffic" / f"{entry['traffic']}.json"),
-                load_json(pb / "workloads" / f"{name}.json"))
+    cfg = load_config(entry["config"], pb)
+    mix = load_json(pb / "traffic" / f"{entry['traffic']}.json")
+    allowed = driver_class(mix["kind"]).FAMILIES
+    if allowed is not None and families.name_of(cfg) not in allowed:
+        raise SystemExit(f"workload {name!r}: the {mix['kind']} driver runs the encoder families {list(allowed)}, "
+                         f"not {families.name_of(cfg)!r} (config {entry['config']!r})")
+    return Cell(name, entry, cfg, mix, load_json(pb / "workloads" / f"{name}.json"), families.of(cfg))
 
 
 def driver_class(kind: str):

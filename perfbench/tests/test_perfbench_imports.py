@@ -1,7 +1,8 @@
 """Nothing the benchmark runs loads JAX or the JAX package (``anuraxla``),
 compared by whole top-level module name (``anuraxla_torch`` is the port and
-passes); the reference imports nothing of the port; ``run.py`` prints no
-result without a card or without the port beside it."""
+passes); the reference imports nothing of the port, and an encoder family
+imports it only inside a function; ``run.py`` prints no result without a
+card or without the port beside it."""
 
 from __future__ import annotations
 
@@ -25,6 +26,29 @@ def imports_of(path: Path):
             yield from (a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.module.split(".")[0]
+
+
+def module_level_imports(path: Path):
+    """The top-level names imported when the module is imported: function bodies left out."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(node, ast.Import):
+                yield from (a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                yield node.module.split(".")[0]
+            yield from walk(ast.iter_child_nodes(node))
+
+    yield from walk(ast.parse(path.read_text()).body)
+
+
+def test_families_import_no_port_at_module_level():
+    found = sorted((harness.PB / "families").glob("*.py"))
+    assert harness.PB / "families" / "conv_vae.py" in found
+    for p in found:
+        assert "anuraxla_torch" not in set(module_level_imports(p)), p
+    assert "anuraxla_torch" in set(imports_of(harness.PB / "families" / "conv_vae.py"))  # inside program_config
 
 
 def test_sources_import_nothing_forbidden():

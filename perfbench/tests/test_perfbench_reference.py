@@ -1,7 +1,9 @@
 """The plain reference against the port on the CPU at a small size: the same
 weights and rows give the same log-mels, latents, reconstructions and
-radial decisions. The port is imported here only to be compared with; the
-reference itself imports nothing of it."""
+radial decisions. Every configuration of BENCHMARK.json is compared through
+its encoder family (``perfbench/families/``): the family's weights loaded in
+the port's session, and its reference latents. The port is imported here
+only to be compared with; the reference itself imports nothing of it."""
 
 from __future__ import annotations
 
@@ -9,35 +11,47 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import harness
+from perfbench import families, harness
 from perfbench.reference import encoder as ref_encoder, mel as ref_mel, radial as ref_radial
 from perfbench.reference.audio import rms_normalize
 from perfbench.reference.lowp import fp8, tf32
 
-CONFIGS = ["vae-stride", "vae-avgpool"]
+CONFIGS = [c["name"] for c in harness.load_json(harness.ROOT / "BENCHMARK.json")["configs"]]
+CONV_VAE = [n for n in CONFIGS if families.name_of(harness.load_config(n)) == "conv-vae"]
 
 
 def config(name):
-    cfg = harness.load_json(harness.PB / "configs" / f"{name}.json")
-    cfg["input_hw"] = [cfg["mel"]["target_frames"], cfg["mel"]["n_mels"]]
-    return cfg
-
-
-def vae_config(cfg):
-    from anuraxla_torch.models.vae import VAEConfig
-
-    return VAEConfig(latent_dim=cfg["latent_dim"], widths=tuple(cfg["widths"]), dense_width=cfg["dense_width"],
-                     groups=cfg["groups"], input_hw=tuple(cfg["input_hw"]), downsample=cfg["downsample"],
-                     conv_padding=cfg["conv_padding"], gn_eps=cfg["gn_eps"])
+    """The configuration as the CPU tests run it: its family's cut."""
+    cfg = harness.load_config(name)
+    return families.of(cfg).cpu_cut(cfg)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_encoder_matches_port(name):
+    """The family's weights in the port's session, against the family's reference latents."""
+    from anuraxla_torch.constants import MelConfig
+    from anuraxla_torch.pipeline.session import EncoderSession
+
+    cfg = config(name)
+    fam = families.of(cfg)
+    p = fam.make_params(cfg, 3, torch.device("cpu"))
+    session = EncoderSession(mel=MelConfig(**cfg["mel"]), batch_size=3, encoder_cfg=fam.program_config(cfg),
+                             device="cpu").load(params=p)
+    x = torch.randn(3, *cfg["input_hw"], generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        a = session._enc(x[..., None])["mu"]
+    b = fam.encode(p, x, cfg)
+    assert a.shape == b.shape == (3, fam.latent_dim(cfg))
+    assert torch.allclose(a, b, rtol=1e-5, atol=1e-5), float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("name", CONV_VAE)
+def test_conv_vae_heads_match_port(name):
     from anuraxla_torch.models.vae import ConvVAEEncoder
 
     cfg = config(name)
     p = ref_encoder.make_params(cfg, 3, torch.device("cpu"))
-    enc = ConvVAEEncoder(vae_config(cfg))
+    enc = ConvVAEEncoder(families.load("conv-vae").program_config(cfg))
     enc.load_state_dict(p)
     x = torch.randn(3, *cfg["input_hw"], generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
@@ -52,7 +66,7 @@ def test_decoder_matches_port():
 
     cfg = config("vae-stride")
     p = ref_encoder.make_params(cfg, 4, torch.device("cpu"), decoder=True)
-    vae = ConvVAE(vae_config(cfg))
+    vae = ConvVAE(families.load("conv-vae").program_config(cfg))
     vae.load_state_dict(p)
     z = torch.randn(2, cfg["latent_dim"], generator=torch.Generator().manual_seed(2))
     with torch.no_grad():

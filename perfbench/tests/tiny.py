@@ -1,6 +1,8 @@
 """Cells of BENCHMARK.json, and of ``held_back.json`` beside it, cut to a size
-the CPU runs in seconds, for the tests: the same configuration, driver,
-session knobs and limits; fewer files, shorter recordings, smaller batches."""
+the CPU runs in seconds, for the tests: the same driver, session knobs and
+limits; fewer files, shorter recordings, smaller batches; the configuration
+as its family cuts it for the CPU (``cpu_cut``: published widths stay for
+the card)."""
 
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ def manifest() -> dict:
     return m
 
 
-def cell(name: str, m: dict = None) -> harness.Cell:
-    c = harness.load_cell(name, m or manifest())
+def cell(name: str, m: dict = None, pb=harness.PB) -> harness.Cell:
+    c = harness.load_cell(name, m or manifest(), pb)
+    c.cfg = c.family.cpu_cut(c.cfg)
     mix, sess = SHRINK[c.kind]
     c.mix = dict(c.mix, **mix)
     c.workload = dict(c.workload, session=dict(c.workload["session"], **sess), warmup_calls=1)

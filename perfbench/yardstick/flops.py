@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import math
 
+from perfbench import families
+
 
 def total_frames(mel: dict) -> int:
     return 1 + int(mel["sr"] * mel["duration"]) // mel["hop_length"]
@@ -65,8 +67,9 @@ def mel_bytes_per_row(mel: dict) -> float:
 
 
 def chunk_flops(cfg: dict) -> float:
-    """One 5 s chunk served: the mel's least work and the encoder's."""
-    return mel_flops_per_row(cfg["mel"]) + 2.0 * encoder_macs(cfg)
+    """One 5 s chunk served: the mel's least work and the encoder's, as the
+    configuration's family counts it."""
+    return mel_flops_per_row(cfg["mel"]) + 2.0 * families.of(cfg).encoder_macs(cfg)
 
 
 def train_example_flops(cfg: dict) -> float:
