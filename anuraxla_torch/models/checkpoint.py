@@ -1,14 +1,18 @@
 """Artifacts and train-state checkpoints without flax — the port of
 ``anuraxla/models/checkpoint.py``.
 
-The artifacts are the JAX package's own, so either package reads what the
-other wrote:
+The conv-VAE artifacts are the JAX package's own, so either package reads
+what the other wrote:
     <dir>/encoder.msgpack + encoder.json   an encoder (the VAEConfig fields)
     <dir>/vae.msgpack + encoder.json       a full ConvVAE, native decoder
     <dir>/decoder.msgpack + decoder.json   an IngestedDecoder (DecoderSpec fields)
 The msgpack bytes are read and written by ``utils.msgpack_codec`` (the
 card's machine has neither ``flax`` nor ``msgpack``), and the weights pass
-through ``models.convert`` (flax layout <-> ``state_dict``).
+through ``models.convert`` (flax layout <-> ``state_dict``). An AST encoder
+(``models.ast``; the JAX package has none) is the port's own artifact under
+the same two names: ``encoder.json`` holds the ``ASTConfig`` fields and
+``"arch": "ast"``, ``encoder.msgpack`` a flat map of the port's
+``state_dict`` names to f32 arrays.
 
 Train-state checkpoints are the port's own format and do not interchange
 with the JAX package's orbax checkpoints: ``<ckpt_dir>/<step>/train_state.pt``
@@ -25,9 +29,11 @@ import logging
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from anuraxla_torch.constants import DEFAULT_ENCODER_DIR
+from anuraxla_torch.models.ast import ASTConfig, init_ast_params
 from anuraxla_torch.models.convert import (
     encoder_params_for_jax, encoder_state_from_jax, ingested_decoder_slots, params_for_jax, state_from_jax, vae_slots,
 )
@@ -36,37 +42,54 @@ from anuraxla_torch.utils import msgpack_codec
 
 log = logging.getLogger(__name__)
 
+AST_ARCH = "ast"  # encoder.json's "arch" for an AST encoder; a conv-VAE's names none
 
-def _cfg_to_dict(cfg: VAEConfig) -> dict:
+
+def cfg_to_dict(cfg: "VAEConfig | ASTConfig") -> dict:
+    """An encoder config as ``encoder.json`` holds it (lists, the dtype's
+    name; an AST config adds ``"arch": "ast"``)."""
     d = dataclasses.asdict(cfg)
-    d["widths"] = list(cfg.widths)
     d["input_hw"] = list(cfg.input_hw)
     d["dtype"] = str(cfg.dtype).replace("torch.", "")
+    if isinstance(cfg, ASTConfig):
+        d["arch"] = AST_ARCH
+    else:
+        d["widths"] = list(cfg.widths)
     return d
 
 
-def _cfg_from_dict(d: dict) -> VAEConfig:
+def _cfg_from_dict(d: dict) -> "VAEConfig | ASTConfig":
     d = dict(d)
-    d["widths"] = tuple(d["widths"])
     d["input_hw"] = tuple(d["input_hw"])
     d["dtype"] = d.get("dtype", "float32")
+    if d.pop("arch", None) == AST_ARCH:
+        return ASTConfig(**d)
+    d["widths"] = tuple(d["widths"])
     return VAEConfig(**d)
 
 
-def save_encoder(dir_path: str | Path, cfg: VAEConfig, state: Dict[str, torch.Tensor]) -> Path:
-    """Write the port's ``state_dict`` as the JAX package's artifact."""
+def save_encoder(dir_path: str | Path, cfg: "VAEConfig | ASTConfig", state: Dict[str, torch.Tensor]) -> Path:
+    """Write the port's ``state_dict``: as the JAX package's artifact for a
+    conv-VAE, as the port's own for an AST encoder."""
     dir_path = Path(dir_path)
     dir_path.mkdir(parents=True, exist_ok=True)
-    (dir_path / "encoder.msgpack").write_bytes(msgpack_codec.packb(encoder_params_for_jax(state, cfg)))
-    (dir_path / "encoder.json").write_text(json.dumps(_cfg_to_dict(cfg), indent=2))
+    if isinstance(cfg, ASTConfig):
+        tree = {k: v.detach().cpu().to(torch.float32).numpy() for k, v in state.items()}
+    else:
+        tree = encoder_params_for_jax(state, cfg)
+    (dir_path / "encoder.msgpack").write_bytes(msgpack_codec.packb(tree))
+    (dir_path / "encoder.json").write_text(json.dumps(cfg_to_dict(cfg), indent=2))
     return dir_path
 
 
-def load_encoder(dir_path: str | Path) -> Tuple[Dict[str, torch.Tensor], VAEConfig]:
-    """-> (``state_dict``, cfg) of an artifact written by either package."""
+def load_encoder(dir_path: str | Path) -> Tuple[Dict[str, torch.Tensor], "VAEConfig | ASTConfig"]:
+    """-> (``state_dict``, cfg) of an artifact written by either package, or
+    of the port's AST artifact."""
     dir_path = Path(dir_path)
     cfg = _cfg_from_dict(json.loads((dir_path / "encoder.json").read_text()))
     params = msgpack_codec.unpackb((dir_path / "encoder.msgpack").read_bytes())
+    if isinstance(cfg, ASTConfig):
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True)) for k, v in params.items()}, cfg
     return encoder_state_from_jax(params, cfg), cfg
 
 
@@ -75,7 +98,7 @@ def save_vae(dir_path: str | Path, cfg: VAEConfig, state: Dict[str, torch.Tensor
     dir_path = Path(dir_path)
     dir_path.mkdir(parents=True, exist_ok=True)
     (dir_path / "vae.msgpack").write_bytes(msgpack_codec.packb(params_for_jax(state, vae_slots(cfg))))
-    (dir_path / "encoder.json").write_text(json.dumps(_cfg_to_dict(cfg), indent=2))
+    (dir_path / "encoder.json").write_text(json.dumps(cfg_to_dict(cfg), indent=2))
     return dir_path
 
 
@@ -160,12 +183,13 @@ def load_or_init_encoder(
     project_root: Path,
     *,
     seed: int = 0,
-    cfg: Optional[VAEConfig] = None,
-) -> Tuple[Dict[str, torch.Tensor], VAEConfig]:
+    cfg: "VAEConfig | ASTConfig | None" = None,
+) -> Tuple[Dict[str, torch.Tensor], "VAEConfig | ASTConfig"]:
     """The reference's resolution: an explicit dir wins, else the default
     artifact under ``project_root``; with neither, a seeded init of ``cfg``
-    (default ``VAEConfig()``) with one warning line — torch's generator, not
-    flax's init RNG, so the JAX package's fallback serves other weights."""
+    (default ``VAEConfig()``; an ``ASTConfig`` takes ``init_ast_params``) with
+    one warning line — torch's generator, not flax's init RNG, so the JAX
+    package's fallback serves other weights."""
     if encoder_dir is not None:
         return load_encoder(encoder_dir)
     default = default_encoder_artifact(project_root)
@@ -174,4 +198,5 @@ def load_or_init_encoder(
     cfg = cfg if cfg is not None else VAEConfig()
     log.warning("⚠️ no encoder artifact (--encoder, or %s): serving a seeded random init (seed %d) that is "
                 "not the JAX package's fallback encoder", default, seed)
-    return init_encoder_params(cfg, torch.Generator().manual_seed(seed)), cfg
+    init = init_ast_params if isinstance(cfg, ASTConfig) else init_encoder_params
+    return init(cfg, torch.Generator().manual_seed(seed)), cfg

@@ -12,6 +12,10 @@ computes the fused RMS scale over the valid slice, the log-mel frontend
 ``parity=False``: the crop-first fast frontend), and the encoder's ``mu``
 (``quantize=True``: int8 conv / dense contractions, ``models.quant``, with
 weights quantized once at ``load`` and activation scales taken per row).
+The encoder is built from the config's type (``ENCODERS``): a ``VAEConfig``
+serves the conv-VAE (``models.vae``), an ``ASTConfig`` the Audio Spectrogram
+Transformer (``models.ast``), whose ``mu`` is its pooled embedding; int8
+serving covers the conv-VAE alone.
 Two batches are in flight: batch i−1's latents are fetched only after batch
 i is dispatched, while batch i+1 decodes. ``encode_array`` copies its rows
 into a slot (PCM16-converted with ``transfer_int16``). A fleet scan of PCM16
@@ -56,7 +60,8 @@ import torch
 
 from anuraxla_torch import resolve_device
 from anuraxla_torch.constants import CACHE_DIR_NAME, MelConfig
-from anuraxla_torch.models.checkpoint import load_or_init_encoder
+from anuraxla_torch.models.ast import ASTConfig, ASTEncoder
+from anuraxla_torch.models.checkpoint import cfg_to_dict, load_or_init_encoder
 from anuraxla_torch.models.quant import encoder_apply_quantized, quantize_encoder
 from anuraxla_torch.models.vae import ConvVAEEncoder, VAEConfig
 from anuraxla_torch.ops.frontend import (
@@ -69,6 +74,8 @@ from anuraxla_torch.parallel.mesh import batch_sharded, make_mesh, pad_to_multip
 from anuraxla_torch.pipeline.dataset import iter_batches, scan_species_tree, subsample_paths
 from anuraxla_torch.utils.timing import span
 
+# the encoder module each family's config object builds
+ENCODERS = {VAEConfig: ConvVAEEncoder, ASTConfig: ASTEncoder}
 HOST_SLOTS = 3  # slots of a host ring: batch i+1 decodes while i transfers and i−1 may still be copying
 
 
@@ -170,7 +177,9 @@ class EncoderSession:
     project_root: Path = Path(".")
     parity: bool = True  # False: the crop-first fast frontend
     backend: str = "cuda"  # "cuda" | "cuda-bf16" | "matmul" | "matmul-bf16"
-    encoder_cfg: VAEConfig = dataclasses.field(default_factory=VAEConfig)
+    # the encoder's family and architecture: VAEConfig (the conv-VAE) or
+    # ASTConfig (the Audio Spectrogram Transformer, models.ast)
+    encoder_cfg: "VAEConfig | ASTConfig" = dataclasses.field(default_factory=VAEConfig)
     # trunk compute dtype ("float32" | "bfloat16"); params and heads stay f32
     encoder_dtype: str = "float32"
     # int8 encoder contractions (models.quant): weights quantized once at
@@ -205,13 +214,20 @@ class EncoderSession:
         if params is None:
             params, self.encoder_cfg = load_or_init_encoder(
                 self.encoder_dir, Path(self.project_root), seed=self.init_seed, cfg=self.encoder_cfg)
+        module = ENCODERS.get(type(self.encoder_cfg))
+        if module is None:
+            raise TypeError(f"no encoder serves a {type(self.encoder_cfg).__name__} "
+                            f"(known: {[c.__name__ for c in ENCODERS]})")
         cfg = dataclasses.replace(self.encoder_cfg, dtype=self.encoder_dtype)
         if tuple(cfg.input_hw) != (self.mel.target_frames, self.mel.n_mels):
             raise ValueError(
                 f"encoder expects input {cfg.input_hw}, mel config produces "
                 f"({self.mel.target_frames}, {self.mel.n_mels})"
             )
-        enc = ConvVAEEncoder(cfg)
+        if self.quantize and module is not ConvVAEEncoder:
+            raise ValueError(f"quantize=True: int8 serving covers the conv-VAE family only, not the "
+                             f"{type(cfg).__name__} encoder ({module.__name__})")
+        enc = module(cfg)
         enc.load_state_dict(params)
         self._enc = enc.eval().to(self._dev)
         self._enc_cfg = cfg
@@ -467,8 +483,8 @@ def session_fingerprint(session: EncoderSession) -> str:
     (``arithmetic_backend``: a kernel backend on a config no kernel takes
     runs matmul math, and on the CPU its plain version, not the card's
     split), the encoder weights (digest of the ``state_dict`` in sorted key
-    order), the architecture (hash of the config, its compute dtype
-    included), int8 serving (``_q8``; ``_q8-cpuplain`` off the card, where
+    order), the architecture (hash of ``models.checkpoint.cfg_to_dict`` of
+    the config: its fields, its compute dtype and an AST config's ``arch``), int8 serving (``_q8``; ``_q8-cpuplain`` off the card, where
     the contractions run their plain versions), int16 transfer, device-side
     normalization and noise injection. The backend is prefixed with :data:`FRAMEWORK_TAG`, so no key equals one of
     the JAX package, whose ``matmul`` backends share their names with this
@@ -480,10 +496,7 @@ def session_fingerprint(session: EncoderSession) -> str:
     for key in sorted(state):
         h.update(key.encode())
         h.update(state[key].detach().cpu().contiguous().numpy().tobytes())
-    d = dataclasses.asdict(session._enc_cfg)
-    d["dtype"] = str(d["dtype"]).replace("torch.", "")
-    d = {k: (list(v) if isinstance(v, tuple) else v) for k, v in d.items()}
-    arch = hashlib.blake2b(json.dumps(d, sort_keys=True).encode(), digest_size=6).hexdigest()
+    arch = hashlib.blake2b(json.dumps(cfg_to_dict(session._enc_cfg), sort_keys=True).encode(), digest_size=6).hexdigest()
     fp = (
         f"{mel_fingerprint(session.mel)}_p{int(session.parity)}"
         f"_{FRAMEWORK_TAG}-{arithmetic_backend(session.mel, session.backend, session._dev)}"

@@ -9,7 +9,8 @@ failure exits non-zero):
 2. hold each serving kernel and mode against the plain PyTorch version of its
    arithmetic on the card, each row against its own max, with a silent and a
    clipping row: the Cooley-Tukey kernel exact (``DEFAULT_MEL``, R = 2), in
-   its bf16 mode (full range and the fast tier's frame range), at hop 320 /
+   its bf16 mode (full range and the fast tier's frame range), at the AST
+   cell's shape (hop 480, 128 mels: 16 mel tiles, 501 frames) and at hop 320 /
    160 / 96; the dense kernel exact and bf16 at hop 240 and at n_fft 400 / hop
    80; every exact case also against plain f32. Every case is also held to its
    plain version with f64 sums, to show where the differences come from;
@@ -23,7 +24,8 @@ failure exits non-zero):
 4. time ``encode_array`` (chunks/s, balanced and fast tier), each kernel, its
    plain version, its bound and one PyTorch library call computing the same
    function (the exact dense kernel at B = 256, the shape of earlier runs, and
-   at B = 1024), with the frame tile each kernel took;
+   at B = 1024; the hop-32 form at the AST cell's shape for the kernels line,
+   and at hop 320, its shape before), with the frame tile each kernel took;
 5. the fit path at full width (balanced tier): a synthetic tree of 4 species x
    48 WAVs and an encoder artifact written by ``save_encoder``;
    ``fit_radial_tree`` and ``fit_map_tree`` (LDA full; QDA diag, shrink 0.1)
@@ -152,7 +154,14 @@ failure exits non-zero):
    (``decision_diff``'s line parsed); ``drive_5db_floor.sh`` would add as
    much again: ``perf_logs/pr12/scripts/phase10.py`` runs the phase with both
    drives (``noise_distance``'s table parsed too);
-11. the kernel study, after every serving phase so that those run as they did
+11. the AST encoder (``models.ast``) at the published widths through the
+   main path: ``EncoderSession`` with an ``ASTConfig`` in the balanced tier at
+   128 mels, hop 480 (``mel_power_ct_hop32`` with 16 mel tiles once, the
+   attention core on the flash backend once a block), its latents equal to
+   the module on the session's own mel; the bf16 module at B = 64 held to the
+   plain reference (``perfbench/reference/ast.py``); the forward at B = 1024
+   timed (``[ast-path]`` line: time, TFLOP/s, the counter, the memory peak);
+12. the kernel study, after every serving phase so that those run as they did
    before it existed: hold the split-bf16 tensor-core kernel
    (``fused_dots=True``: a TMA ring, wgmma) to its plain version, exact and
    bf16, at ``DEFAULT_MEL`` pre-padded, at the fast tier's frame range, at hop
@@ -166,7 +175,7 @@ failure exits non-zero):
    each module of ``anuraxla_torch.probes`` and of ``anuraxla_torch.bench``
    (the split kernel's counts must move there); time the split kernel, with
    the L2 bytes of its table stream;
-12. print the kernels line (``mel_power_ct``'s also with its launches on the
+13. print the kernels line (``mel_power_ct``'s also with its launches on the
    fit path, the parallel path, the pipeline path, it and
    ``mel_power_ct_bf16`` on the training path; every kernel's on the
    evaluation path; ``window_expand``'s launches are the evaluation path's),
@@ -373,6 +382,8 @@ def configs():
         "n_fft256_hop128": MelConfig(**small, hop_length=128, n_fft=256),
         "n_fft512_hop96": MelConfig(**small, hop_length=96, n_fft=512),
         "n_fft400_hop80": MelConfig(**small, hop_length=80, n_fft=400),
+        # the AST cell's frontend (perfbench/configs/ast-base-esc50.json)
+        "ast_hop480": MelConfig(n_mels=128, hop_length=480, target_frames=501),
     }
 
 
@@ -413,6 +424,7 @@ CASES = [
     Case("mel_power_ct", "n_fft256_hop128", 8, True, pre_padded=True),
     Case("mel_power_ct_bf16", "DEFAULT_MEL", 64, False, fast=True),
     Case("mel_power_ct_bf16", "DEFAULT_MEL", 64, False, pre_padded=True),
+    Case("mel_power_ct_hop32", "ast_hop480", 64, True),
     Case("mel_power_ct_hop32", "hop320", 32, True),
     Case("mel_power_ct_hop32", "hop160", 16, True),
     Case("mel_power_ct_hop32", "n_fft512_hop96", 8, True),
@@ -948,8 +960,10 @@ def phase_times(seed: int, rng, profile: bool = False, checkpoint=lambda where: 
                                       fast=False, pre_padded=True, iters=10)
     out["mel_power_ct_bf16"] = time_kernel("mel_power_ct_bf16", "DEFAULT_MEL", B, rng, exact=False,
                                            algorithm="ct", fast=True, pre_padded=False, iters=10)
-    out["mel_power_ct_hop32"] = time_kernel("mel_power_ct_hop32", "hop320", B, rng, exact=True,
+    out["mel_power_ct_hop32"] = time_kernel("mel_power_ct_hop32", "ast_hop480", B, rng, exact=True,
                                             algorithm="ct", fast=False, pre_padded=False, iters=5)
+    time_kernel("mel_power_ct_hop32", "hop320", B, rng, exact=True, algorithm="ct", fast=False,
+                pre_padded=False, iters=5)
     checkpoint("after the ct kernels' timings")
     # the dense form does ~135x the function's least work: the kernels line keeps a
     # quarter of the batch, the shape of earlier runs; the whole batch is timed too
@@ -3299,6 +3313,62 @@ def phase_study_times(rng) -> dict:
     }
 
 
+def phase_ast_path(seed: int) -> dict:
+    """The AST encoder at the published widths (``ASTConfig()``: ViT-B, 128
+    mels x 501 frames, 590 tokens) through the main path: an
+    ``EncoderSession`` with the ASTConfig in the balanced tier (hop 480: the
+    Cooley-Tukey kernel's hop-32 form with 16 mel tiles; RMS on the card) on
+    1 024 rows, its latents equal to the module on the session's own mel,
+    ``mel_power_ct_hop32`` launched once and the attention core 12 times on
+    the flash backend; the bf16 module at B = 64 within 0.02 of the plain
+    reference's largest entry (``tests/test_torch_cuda.py``); the forward at
+    B = 1 024 timed with CUDA events, and the device memory's peak."""
+    from anuraxla_torch.models.ast import ASTConfig, ASTEncoder
+    from anuraxla_torch.ops import mel_kernel as mk
+    from anuraxla_torch.ops.frontend import log_mel_batch, rms_scale_batch
+    from anuraxla_torch.pipeline.session import EncoderSession
+    from perfbench.reference import ast as ref_ast
+
+    dev = torch.device("cuda")
+    mel = configs()["ast_hop480"]
+    cfg = ASTConfig()
+    ref_cfg = {**dataclasses.asdict(cfg), "input_hw": list(cfg.input_hw)}
+    p = ref_ast.make_params(ref_cfg, seed, dev)
+    s = EncoderSession(mel=mel, batch_size=TIMING_B, backend="cuda", encoder_cfg=cfg, encoder_dtype="bfloat16",
+                       normalize_on_device=True).load(params=p)
+    rows = test_rows(mel, TIMING_B, np.random.default_rng([seed, 19]))
+    n_mel, n_att = dict(mk.mel_power.launches), dict(ASTEncoder.attention_calls)
+    z = s.encode_array(rows)
+    mel_moved = {k: v - n_mel.get(k, 0) for k, v in mk.mel_power.launches.items() if v != n_mel.get(k, 0)}
+    att_moved = {k: v - n_att[k] for k, v in ASTEncoder.attention_calls.items()}
+    assert mel_moved == {"mel_power_ct_hop32": 1}, mel_moved
+    assert att_moved == {"flash": cfg.layers, "efficient": 0, "math": 0}, att_moved
+    with torch.inference_mode():
+        y = torch.from_numpy(rows).to(dev)
+        m = log_mel_batch(y, mel, parity=True, backend="cuda", rms_scale=rms_scale_batch(y))
+        assert np.array_equal(z, s._enc(m[..., None])["mu"].cpu().numpy())
+        x = torch.randn(64, *cfg.input_hw, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+        want = ref_ast.encode(p, x, ref_cfg)
+        rel = float((s._enc(x[..., None])["mu"] - want).abs().max() / want.abs().max())
+        assert rel <= 0.02, rel
+        xb = torch.randn(TIMING_B, *cfg.input_hw, 1, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            s._enc(xb)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(5):
+            s._enc(xb)
+        b.record()
+        torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / 5
+    out = {"rel_max_b64": rel, "forward ms": ms, "attention_calls": att_moved, "mel launches": mel_moved,
+           "TFLOP/s": 2 * 56_643_231_744 * TIMING_B / ms / 1e9, "memory peak GB": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[ast-path] {json.dumps(out)}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seed", type=int, default=0)
@@ -3350,6 +3420,7 @@ def main() -> None:
         parallel = phase_parallel_path(args.seed, Path(fit_root), fit, Path(train_root))
     with tempfile.TemporaryDirectory() as tmp:
         pipeline = phase_pipeline_path(args.seed, Path(tmp), drives=PIPELINE_DRIVES[:1])
+    ast_path = phase_ast_path(args.seed)
     study_rng = np.random.default_rng([args.seed, 3])
     errors.update(phase_kernel_vs_plain(STUDY_CASES, study_rng))
     launches.update(phase_study_path())
@@ -3410,7 +3481,8 @@ def main() -> None:
                                                   if k.startswith("encode_paths"))
         + f"; pipeline driver {pipeline['times']['driver s']:.1f} s (train-vae "
         + f"{pipeline['times']['train-vae examples/s']:.1f} examples/s), {PIPELINE_DRIVES[0]} "
-        + f"{pipeline['times'][PIPELINE_DRIVES[0] + ' s']:.1f} s")
+        + f"{pipeline['times'][PIPELINE_DRIVES[0] + ' s']:.1f} s; AST forward {ast_path['forward ms']:.1f} ms "
+        + f"a batch of {TIMING_B} ({ast_path['TFLOP/s']:.1f} TFLOP/s)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -278,6 +278,8 @@ CT_CASES = [
     (dict(R16, hop_length=1120, duration=3.0), True, 1, False, 32),   # the longest hop the FP32 kernel took
     (dict(R16, hop_length=2048, duration=4.0, n_mels=20), True, 0, False, 16),  # the smallest tile
     (dict(R16, hop_length=2048, duration=4.0), False, 1, False, 16),
+    # the AST cell's frontend: hop 480 (R = 16, hop % 32), 128 mels in 16 tiles, 501 frames
+    (dict(R16, n_mels=128, hop_length=480, duration=5.0, target_frames=501), True, 0, False, 32),
 ]
 
 
@@ -954,3 +956,36 @@ def test_window_spans_through_the_session_on_card(card, tmp_path):
             n += 1
         assert n == 5 and window_expand.launches == n0 + n
         assert all(b.is_pinned() for b in s._span_ring.bufs)
+
+
+# the AST encoder at the published widths on the card against the plain
+# reference (perfbench/reference/ast.py, f32, TF32 off), relative to the
+# embedding's largest entry: a bf16 trunk read 0.0065-0.0069 (H100 80GB HBM3, 700 W, B 64) and
+# the reference with fp8 operands 0.097, so 0.02 lies between; the f32 trunk
+# (the memory-efficient backend's f32 path, TF32 off elsewhere) read 1.3e-6
+AST_TOL = {"bfloat16": (0.02, "flash"), "float32": (1e-5, "efficient")}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ast_encoder_at_published_widths_matches_reference(card, dtype):
+    import dataclasses
+
+    from anuraxla_torch.models.ast import ASTConfig, ASTEncoder
+    from perfbench.reference import ast as ref_ast
+
+    cfg = ASTConfig(dtype=dtype)
+    ref_cfg = {**dataclasses.asdict(cfg), "input_hw": list(cfg.input_hw)}
+    p = ref_ast.make_params(ref_cfg, 19, card)
+    x = torch.randn(64, *cfg.input_hw, device=card, generator=torch.Generator(device=card).manual_seed(2))
+    want = ref_ast.encode(p, x, ref_cfg)
+    enc = ASTEncoder(cfg)
+    enc.load_state_dict(p)
+    enc = enc.eval().to(card)
+    tol, backend = AST_TOL[dtype]
+    n0 = dict(ASTEncoder.attention_calls)
+    with torch.inference_mode():
+        got = enc(x[..., None])["mu"]
+    assert got.dtype == torch.float32 and got.shape == (64, 768)
+    assert float((got - want).abs().max() / want.abs().max()) <= tol
+    assert {k: v - n0[k] for k, v in ASTEncoder.attention_calls.items()} == \
+        {k: (cfg.layers if k == backend else 0) for k in n0}
