@@ -83,7 +83,7 @@ def run_folder_benchmark(
 
     with maybe_trace("folder_benchmark"):
         with span("tree_scan") as s:
-            tree = scan_species_tree(root)  # folder name == ground truth
+            tree = scan_species_tree(root, counts=s)  # folder name == ground truth
             s["files"] = sum(len(v) for v in tree.values())
         if not any(tree.values()):
             raise RuntimeError(f"no species subfolders with wavs under: {root}")

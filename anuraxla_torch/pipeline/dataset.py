@@ -14,6 +14,7 @@ either way, so neither costs the host a further copy.
 
 from __future__ import annotations
 
+import os
 import random as pyrandom
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -26,21 +27,51 @@ from anuraxla_torch.utils.timing import span
 from anuraxla_torch.utils.wavio import crop_or_pad_samples, read_wav
 
 
-def scan_species_tree(root: Path, species: Optional[Sequence[str]] = None) -> Dict[str, List[Path]]:
+def scan_species_tree(root: Path, species: Optional[Sequence[str]] = None, *,
+                      counts=None) -> Dict[str, List[Path]]:
     """root/<Species>/*.wav -> {species: sorted wav paths}. With an explicit
     species list only those subdirs are read (absent ones map to []);
     otherwise every non-hidden subdir is a class. Recurses and accepts
-    .wav/.WAV."""
+    .wav/.WAV, the same list as ``rglob("*")`` + ``is_file()``: symlinks to
+    files count, symlinked directories are not descended.
+
+    The walk reads each entry's type from its directory listing, not from a
+    ``stat``: on 9p, NFS or SMB a ``stat`` is a round trip to the server.
+    ``counts`` (optional; anything that takes ``counts[key] = n``, such as a
+    span) gets the walk's ``dirs`` listed, ``entries`` read and ``followed``
+    (the symlinks among them, each of which still costs a ``stat``)."""
     root = Path(root)
     if species is None:
-        names = [d.name for d in sorted(d for d in root.iterdir() if d.is_dir() and not d.name.startswith("."))]
+        with os.scandir(root) as it:
+            names = sorted(e.name for e in it if not e.name.startswith(".") and e.is_dir())
     else:
         names = list(species)
     out: Dict[str, List[Path]] = {}
+    n_dirs = n_entries = n_followed = 0
     for name in names:
         sp_dir = root / name
-        out[name] = (sorted(p for p in sp_dir.rglob("*") if p.is_file() and p.suffix in (".wav", ".WAV"))
-                     if sp_dir.exists() else [])
+        found: List[Tuple[str, ...]] = []  # each file's names below sp_dir
+        todo: List[Tuple[str, ...]] = [()]
+        while todo:
+            rel = todo.pop()
+            try:
+                with os.scandir(sp_dir.joinpath(*rel)) as it:
+                    entries = list(it)
+            except OSError:  # absent, a file, unreadable: rglob yields nothing there either
+                continue
+            n_dirs += 1
+            n_entries += len(entries)
+            for e in entries:
+                n_followed += e.is_symlink()
+                if e.is_dir(follow_symlinks=False):
+                    todo.append(rel + (e.name,))
+                # Path.suffix: the name past its last dot, where that dot is not the first character
+                elif len(e.name) > 4 and e.name[-4:] in (".wav", ".WAV") and e.is_file():
+                    found.append(rel + (e.name,))
+        found.sort()  # the Paths' own order (names compared in turn); sorting Paths would format every one's string
+        out[name] = [sp_dir.joinpath(*f) for f in found]
+    if counts is not None:
+        counts["dirs"], counts["entries"], counts["followed"] = n_dirs, n_entries, n_followed
     return out
 
 

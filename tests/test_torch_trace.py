@@ -1,7 +1,7 @@
 """The port's spans (``anuraxla_torch.utils.timing``): nothing recorded and no
 profiler range opened while no profiler runs; records from worker threads
 with their thread, parent and counts; the profiler's clock; the spans of the
-served paths (``encode_paths``, ``detect_species``); the buffer's bound.
+served paths (``encode_paths``, ``detect_species``) and the folder benchmark's tree scan; the buffer's bound.
 Everything runs on the CPU under ``torch.profiler`` at tiny shapes."""
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 from anuraxla_torch.cli import evaluate_wav
 from anuraxla_torch.constants import PRIORITY_ORDER, MelConfig
 from anuraxla_torch.models.vae import VAEConfig
+from anuraxla_torch.pipeline.benchmark import run_folder_benchmark
 from anuraxla_torch.pipeline.session import EncoderSession
 from anuraxla_torch.utils import timing
 from anuraxla_torch.utils.wavio import write_wav
@@ -186,6 +187,30 @@ def test_detect_species_spans_share_its_id(tmp_path):
         assert {r.name for r in mine} == {"request", "config_read", "decode", "dispatch", "slot_wait", "stage",
                                           "encoder", "fetch"}
         assert all(req.start_ns <= r.start_ns <= r.end_ns <= req.end_ns for r in mine)
+
+
+def test_folder_benchmark_tree_scan_span(tmp_path, monkeypatch):
+    root = tmp_path / "tree"
+    sps = PRIORITY_ORDER[:2]
+    (root / sps[1] / "nested").mkdir(parents=True)
+    (root / sps[0]).mkdir()
+    for sp in sps:
+        write_wavs(root / sp, 2)
+    write_wavs(root / sps[1] / "nested", 1)
+    s = session(2)
+    z = s.encode_array(np.zeros((1, SMALL.num_samples), np.float32))[0]
+    cfg = {"species": sps, "chunk_seconds": SMALL.duration,
+           "radial_detector": {"centroids": {sp: z.tolist() for sp in sps}, "thresholds": {sp: 1.0 for sp in sps}}}
+    cfg_path = tmp_path / "config.json"
+    cfg_path.write_text(json.dumps(cfg))
+    monkeypatch.setenv("ANURAXLA_TRACE_DIR", str(tmp_path / "trace"))
+    res = run_folder_benchmark(root=root, config_path=cfg_path, detector="radial", session=s, out_dir=tmp_path / "out",
+                               log=lambda *_: None, write_artifacts=False)
+    assert res.total == 5
+    lines = [json.loads(x) for x in (tmp_path / "trace" / "folder_benchmark" / "spans.jsonl").read_text().splitlines()]
+    scans = [x["counts"] for x in lines if x["name"] == "tree_scan"]
+    # three directories listed: the two species and one nested; two WAVs, then two WAVs and the nested directory
+    assert scans == [{"dirs": 3, "entries": 2 + 3 + 1, "followed": 0, "files": 5}]
 
 
 def test_full_buffer_counts_its_drops(monkeypatch):
