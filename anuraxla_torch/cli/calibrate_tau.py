@@ -74,7 +74,7 @@ def main(argv=None) -> None:
         device=args.device,
         **session_kwargs(args),
     ).load()
-    dev = session._dev
+    dev = session.dev
 
     Z_by, _, _ = encode_species_tree(
         session, train_dir, species_all,

@@ -292,12 +292,10 @@ def _device_sweep(args, session, cfg_path, train_dir, val_dir, grid_root, projec
         # same fit, noised evaluation latents: pick (q_in, q_out) by noised
         # accuracy subject to clean accuracy within 2 points
         session.add_noise_db = float(args.noise_margin_db)
-        session._fingerprint = None
         try:
             Zn, true_n = val_latents()
         finally:
             session.add_noise_db = None
-            session._fingerprint = None
         gmn = radial_qgrid(fit, Zn, true_n, ranks, qi, qo)
         acc_nz, nod_nz = gmn.accuracy.cpu().numpy(), gmn.no_detect_rate.cpu().numpy()
 

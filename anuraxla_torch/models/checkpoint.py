@@ -27,70 +27,88 @@ import dataclasses
 import json
 import logging
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from anuraxla_torch.constants import DEFAULT_ENCODER_DIR
-from anuraxla_torch.models.ast import ASTConfig, init_ast_params
+from anuraxla_torch.models.ast import ASTConfig, ASTEncoder, init_ast_params
 from anuraxla_torch.models.convert import (
     encoder_params_for_jax, encoder_state_from_jax, ingested_decoder_slots, params_for_jax, state_from_jax, vae_slots,
 )
-from anuraxla_torch.models.vae import DecoderSpec, VAEConfig, init_encoder_params
+from anuraxla_torch.models.vae import ConvVAEEncoder, DecoderSpec, VAEConfig, init_encoder_params
 from anuraxla_torch.utils import msgpack_codec
 
 log = logging.getLogger(__name__)
 
-AST_ARCH = "ast"  # encoder.json's "arch" for an AST encoder; a conv-VAE's names none
+
+class Family(NamedTuple):
+    """An encoder family: its module, ``encoder.json``'s ``"arch"`` (None: the
+    JAX package's conv-VAE artifact), the artifact's writer and reader, the seeded init."""
+
+    encoder: type
+    arch: Optional[str]
+    write: Callable
+    read: Callable
+    init: Callable
 
 
-def cfg_to_dict(cfg: "VAEConfig | ASTConfig") -> dict:
+# every encoder family, by its config class: adding one is its model module and an entry here
+EncoderConfig = Union[VAEConfig, ASTConfig]  # the keys of FAMILIES
+FAMILIES = {
+    VAEConfig: Family(ConvVAEEncoder, None, encoder_params_for_jax, encoder_state_from_jax, init_encoder_params),
+    ASTConfig: Family(ASTEncoder, "ast",  # a flat map of the state_dict's names to f32 arrays
+                      lambda state, _: {k: v.detach().cpu().to(torch.float32).numpy() for k, v in state.items()},
+                      lambda tree, _: {k: torch.from_numpy(np.array(v, np.float32)) for k, v in tree.items()},
+                      init_ast_params),
+}
+
+
+def family_of(cfg: EncoderConfig) -> Family:
+    """The family of an encoder config; TypeError for a config no family has."""
+    fam = FAMILIES.get(type(cfg))
+    if fam is None:
+        raise TypeError(f"no encoder serves a {type(cfg).__name__} (known: {[c.__name__ for c in FAMILIES]})")
+    return fam
+
+
+def cfg_to_dict(cfg: EncoderConfig) -> dict:
     """An encoder config as ``encoder.json`` holds it (lists, the dtype's
-    name; an AST config adds ``"arch": "ast"``)."""
-    d = dataclasses.asdict(cfg)
-    d["input_hw"] = list(cfg.input_hw)
+    name, then the family's ``"arch"`` where it has one)."""
+    d = {k: list(v) if isinstance(v, (tuple, list)) else v for k, v in dataclasses.asdict(cfg).items()}
     d["dtype"] = str(cfg.dtype).replace("torch.", "")
-    if isinstance(cfg, ASTConfig):
-        d["arch"] = AST_ARCH
-    else:
-        d["widths"] = list(cfg.widths)
-    return d
+    arch = family_of(cfg).arch
+    return d if arch is None else {**d, "arch": arch}
 
 
-def _cfg_from_dict(d: dict) -> "VAEConfig | ASTConfig":
-    d = dict(d)
-    d["input_hw"] = tuple(d["input_hw"])
+def _cfg_from_dict(d: dict) -> EncoderConfig:
+    d = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
     d["dtype"] = d.get("dtype", "float32")
-    if d.pop("arch", None) == AST_ARCH:
-        return ASTConfig(**d)
-    d["widths"] = tuple(d["widths"])
-    return VAEConfig(**d)
+    arch = d.pop("arch", None)
+    cls = next((c for c, fam in FAMILIES.items() if fam.arch == arch), None)
+    if cls is None:
+        raise ValueError(f"encoder.json names arch {arch!r}, which no encoder family has")
+    return cls(**d)
 
 
-def save_encoder(dir_path: str | Path, cfg: "VAEConfig | ASTConfig", state: Dict[str, torch.Tensor]) -> Path:
-    """Write the port's ``state_dict``: as the JAX package's artifact for a
-    conv-VAE, as the port's own for an AST encoder."""
+def save_encoder(dir_path: str | Path, cfg: EncoderConfig, state: Dict[str, torch.Tensor]) -> Path:
+    """Write the port's ``state_dict`` in its family's artifact: the JAX
+    package's for a conv-VAE, the port's own for an AST encoder."""
     dir_path = Path(dir_path)
     dir_path.mkdir(parents=True, exist_ok=True)
-    if isinstance(cfg, ASTConfig):
-        tree = {k: v.detach().cpu().to(torch.float32).numpy() for k, v in state.items()}
-    else:
-        tree = encoder_params_for_jax(state, cfg)
-    (dir_path / "encoder.msgpack").write_bytes(msgpack_codec.packb(tree))
+    (dir_path / "encoder.msgpack").write_bytes(msgpack_codec.packb(family_of(cfg).write(state, cfg)))
     (dir_path / "encoder.json").write_text(json.dumps(cfg_to_dict(cfg), indent=2))
     return dir_path
 
 
-def load_encoder(dir_path: str | Path) -> Tuple[Dict[str, torch.Tensor], "VAEConfig | ASTConfig"]:
+def load_encoder(dir_path: str | Path) -> Tuple[Dict[str, torch.Tensor], EncoderConfig]:
     """-> (``state_dict``, cfg) of an artifact written by either package, or
     of the port's AST artifact."""
     dir_path = Path(dir_path)
     cfg = _cfg_from_dict(json.loads((dir_path / "encoder.json").read_text()))
     params = msgpack_codec.unpackb((dir_path / "encoder.msgpack").read_bytes())
-    if isinstance(cfg, ASTConfig):
-        return {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True)) for k, v in params.items()}, cfg
-    return encoder_state_from_jax(params, cfg), cfg
+    return family_of(cfg).read(params, cfg), cfg
 
 
 def save_vae(dir_path: str | Path, cfg: VAEConfig, state: Dict[str, torch.Tensor]) -> Path:
@@ -178,16 +196,11 @@ def default_encoder_artifact(project_root: Path) -> Path:
     return Path(project_root) / DEFAULT_ENCODER_DIR
 
 
-def load_or_init_encoder(
-    encoder_dir: str | Path | None,
-    project_root: Path,
-    *,
-    seed: int = 0,
-    cfg: "VAEConfig | ASTConfig | None" = None,
-) -> Tuple[Dict[str, torch.Tensor], "VAEConfig | ASTConfig"]:
+def load_or_init_encoder(encoder_dir: str | Path | None, project_root: Path, *, seed: int = 0,
+                         cfg: Optional[EncoderConfig] = None) -> Tuple[Dict[str, torch.Tensor], EncoderConfig]:
     """The reference's resolution: an explicit dir wins, else the default
     artifact under ``project_root``; with neither, a seeded init of ``cfg``
-    (default ``VAEConfig()``; an ``ASTConfig`` takes ``init_ast_params``) with
+    (default ``VAEConfig()``) by its family's init, with
     one warning line — torch's generator, not flax's init RNG, so the JAX
     package's fallback serves other weights."""
     if encoder_dir is not None:
@@ -198,5 +211,4 @@ def load_or_init_encoder(
     cfg = cfg if cfg is not None else VAEConfig()
     log.warning("⚠️ no encoder artifact (--encoder, or %s): serving a seeded random init (seed %d) that is "
                 "not the JAX package's fallback encoder", default, seed)
-    init = init_ast_params if isinstance(cfg, ASTConfig) else init_encoder_params
-    return init(cfg, torch.Generator().manual_seed(seed)), cfg
+    return family_of(cfg).init(cfg, torch.Generator().manual_seed(seed)), cfg

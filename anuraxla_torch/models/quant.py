@@ -164,6 +164,14 @@ def _quant_weight(w: torch.Tensor):
     return wq, sw.to(torch.float32)
 
 
+def check_quantizable(cfg, encoder: type) -> None:
+    """Refuse int8 serving (ValueError) for a config of another family than
+    the conv-VAE; ``encoder`` is the module the config would build."""
+    if not isinstance(cfg, VAEConfig):
+        raise ValueError(f"quantize=True: int8 serving covers the conv-VAE family only, not the "
+                         f"{type(cfg).__name__} encoder ({encoder.__name__})")
+
+
 def quantize_encoder(params, cfg: VAEConfig, calib_x: Optional[torch.Tensor] = None, *, device=None) -> dict:
     """Weight quantization (and, with ``calib_x`` — a representative
     [B, T, M, 1] log-mel batch — one activation scale a layer from its absmax)

@@ -78,7 +78,7 @@ def run_folder_benchmark(
 ) -> BenchmarkResult:
     """Benchmark a labelled folder with a loaded session."""
     species, chunk_seconds, score_col, decide = detector_from_config(
-        load_config(config_path), detector, session._dev)
+        load_config(config_path), detector, session.dev)
     session.reconfigure(duration=chunk_seconds)
 
     with maybe_trace("folder_benchmark"):
@@ -97,7 +97,7 @@ def run_folder_benchmark(
 
         with stage_timer("encode", n_items=len(all_paths), log=None) as t_enc:
             Z, ok, errors = session.encode_paths(all_paths)
-        res = decide(torch.from_numpy(Z).to(session._dev))
+        res = decide(torch.from_numpy(Z).to(session.dev))
         with span("fetch", rows=len(all_paths)):
             detected, winner, best = (x.cpu().numpy() for x in res)
 
@@ -171,7 +171,6 @@ def run_snr_sweep(
     curve: List[dict] = []
     for snr in snrs_db:
         session.add_noise_db = None if snr is None else float(snr)
-        session._fingerprint = None  # the cache key embeds the noise config
         tag = "clean" if snr is None else f"snr_{snr:g}db"
         log(f"— {tag} —")
         res = run_folder_benchmark(
@@ -187,7 +186,6 @@ def run_snr_sweep(
             }
         )
     session.add_noise_db = None
-    session._fingerprint = None
     path = out_dir / "snr_curve.csv"
     with open(path, "w", newline="", encoding="utf-8") as f:
         w = csv.DictWriter(f, fieldnames=["snr_db", "accuracy", "no_detect_rate", "n"])

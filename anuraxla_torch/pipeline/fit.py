@@ -41,7 +41,7 @@ def _fit_mesh(session: EncoderSession) -> Optional[Mesh]:
     every process (``make_mesh``), where there are several; else None."""
     if not session.data_parallel:
         return None
-    mesh = make_mesh(device=session._dev)
+    mesh = make_mesh(device=session.dev)
     return mesh if mesh.shape["data"] > 1 else None
 
 
@@ -55,7 +55,7 @@ def _fit_radial_dispatch(session, Z, mask, q_in, q_out):
     mesh = _fit_mesh(session)
     if mesh is not None:
         return fit_radial_sharded(Z, mask, q_in, q_out, mesh=mesh)
-    dev = session._dev
+    dev = session.dev
     return fit_radial(torch.from_numpy(Z).to(dev), torch.from_numpy(mask).to(dev), q_in, q_out)
 
 
@@ -63,7 +63,7 @@ def _fit_map_dispatch(session, Z, mask, **kw):
     mesh = _fit_mesh(session)
     if mesh is not None:
         return fit_map_sharded(Z, mask, mesh=mesh, **kw)
-    dev = session._dev
+    dev = session.dev
     return fit_map(torch.from_numpy(Z).to(dev), torch.from_numpy(mask).to(dev), **kw)
 
 
@@ -89,7 +89,6 @@ def encode_augmented_tree(
     )
     for db in augment_noise_db or ():
         session.add_noise_db = float(db)
-        session._fingerprint = None  # the cache key embeds the noise config
         try:
             log(f"🌫️ augment: re-encoding at {db:g} dB SNR")
             Zn, f2, u2 = encode_species_tree(
@@ -99,7 +98,6 @@ def encode_augmented_tree(
             )
         finally:
             session.add_noise_db = None
-            session._fingerprint = None
         for sp, Zn_sp in Zn.items():
             Z_by[sp] = np.concatenate([Z_by[sp], Zn_sp]) if sp in Z_by else Zn_sp
             failed[sp] = failed.get(sp, 0) + f2.get(sp, 0)

@@ -12,12 +12,13 @@ computes the fused RMS scale over the valid slice, the log-mel frontend
 ``parity=False``: the crop-first fast frontend), and the encoder's ``mu``
 (``quantize=True``: int8 conv / dense contractions, ``models.quant``, with
 weights quantized once at ``load`` and activation scales taken per row).
-The encoder is built from the config's type (``ENCODERS``): a ``VAEConfig``
-serves the conv-VAE (``models.vae``), an ``ASTConfig`` the Audio Spectrogram
-Transformer (``models.ast``), whose ``mu`` is its pooled embedding; int8
-serving covers the conv-VAE alone.
-Two batches are in flight: batch i−1's latents are fetched only after batch
-i is dispatched, while batch i+1 decodes. ``encode_array`` copies its rows
+The encoder is built by the config's family (``models.checkpoint.FAMILIES``):
+a ``VAEConfig`` serves the conv-VAE (``models.vae``), an ``ASTConfig`` the
+Audio Spectrogram Transformer (``models.ast``), whose ``mu`` is its pooled
+embedding; int8 serving covers the conv-VAE alone (``models.quant``).
+Two batches are in flight (``encode_batches``, the loop ``encode_paths`` and
+the fleet scan share): batch i−1's result is fetched only after batch i is
+dispatched, while batch i+1 decodes. ``encode_array`` copies its rows
 into a slot (PCM16-converted with ``transfer_int16``). A fleet scan of PCM16
 recordings hands ``_dispatch`` its batches as ``WindowSpans`` instead: a
 slot of the session's int16 span ring holding each batch's source samples
@@ -53,17 +54,16 @@ import random as pyrandom
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from anuraxla_torch import resolve_device
 from anuraxla_torch.constants import CACHE_DIR_NAME, MelConfig
-from anuraxla_torch.models.ast import ASTConfig, ASTEncoder
-from anuraxla_torch.models.checkpoint import cfg_to_dict, load_or_init_encoder
-from anuraxla_torch.models.quant import encoder_apply_quantized, quantize_encoder
-from anuraxla_torch.models.vae import ConvVAEEncoder, VAEConfig
+from anuraxla_torch.models.checkpoint import EncoderConfig, cfg_to_dict, family_of, load_or_init_encoder
+from anuraxla_torch.models.quant import check_quantizable, encoder_apply_quantized, quantize_encoder
+from anuraxla_torch.models.vae import VAEConfig
 from anuraxla_torch.ops.frontend import (
     BACKENDS, arithmetic_backend, log_mel_batch, mel_to_encoder_input, rms_scale_batch,
 )
@@ -74,8 +74,6 @@ from anuraxla_torch.parallel.mesh import batch_sharded, make_mesh, pad_to_multip
 from anuraxla_torch.pipeline.dataset import iter_batches, scan_species_tree, subsample_paths
 from anuraxla_torch.utils.timing import span
 
-# the encoder module each family's config object builds
-ENCODERS = {VAEConfig: ConvVAEEncoder, ASTConfig: ASTEncoder}
 HOST_SLOTS = 3  # slots of a host ring: batch i+1 decodes while i transfers and i−1 may still be copying
 
 
@@ -177,9 +175,9 @@ class EncoderSession:
     project_root: Path = Path(".")
     parity: bool = True  # False: the crop-first fast frontend
     backend: str = "cuda"  # "cuda" | "cuda-bf16" | "matmul" | "matmul-bf16"
-    # the encoder's family and architecture: VAEConfig (the conv-VAE) or
-    # ASTConfig (the Audio Spectrogram Transformer, models.ast)
-    encoder_cfg: "VAEConfig | ASTConfig" = dataclasses.field(default_factory=VAEConfig)
+    # the encoder's family and architecture, a config of models.checkpoint.FAMILIES:
+    # VAEConfig (the conv-VAE) or ASTConfig (the Audio Spectrogram Transformer)
+    encoder_cfg: EncoderConfig = dataclasses.field(default_factory=VAEConfig)
     # trunk compute dtype ("float32" | "bfloat16"); params and heads stay f32
     encoder_dtype: str = "float32"
     # int8 encoder contractions (models.quant): weights quantized once at
@@ -203,7 +201,7 @@ class EncoderSession:
     latent_dim: int = 0
 
     def load(self, params: Optional[dict] = None) -> "EncoderSession":
-        self._dev = resolve_device(self.device)
+        self.dev = resolve_device(self.device)  # the device the session computes on
         if self.encoder_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"encoder_dtype must be float32 or bfloat16, got {self.encoder_dtype!r}")
         if self.encoder_dtype == "bfloat16" and self.quantize:
@@ -214,30 +212,27 @@ class EncoderSession:
         if params is None:
             params, self.encoder_cfg = load_or_init_encoder(
                 self.encoder_dir, Path(self.project_root), seed=self.init_seed, cfg=self.encoder_cfg)
-        module = ENCODERS.get(type(self.encoder_cfg))
-        if module is None:
-            raise TypeError(f"no encoder serves a {type(self.encoder_cfg).__name__} "
-                            f"(known: {[c.__name__ for c in ENCODERS]})")
+        module = family_of(self.encoder_cfg).encoder
         cfg = dataclasses.replace(self.encoder_cfg, dtype=self.encoder_dtype)
         if tuple(cfg.input_hw) != (self.mel.target_frames, self.mel.n_mels):
             raise ValueError(
                 f"encoder expects input {cfg.input_hw}, mel config produces "
                 f"({self.mel.target_frames}, {self.mel.n_mels})"
             )
-        if self.quantize and module is not ConvVAEEncoder:
-            raise ValueError(f"quantize=True: int8 serving covers the conv-VAE family only, not the "
-                             f"{type(cfg).__name__} encoder ({module.__name__})")
+        if self.quantize:
+            check_quantizable(cfg, module)
         enc = module(cfg)
         enc.load_state_dict(params)
-        self._enc = enc.eval().to(self._dev)
+        self._enc = enc.eval().to(self.dev)
         self._enc_cfg = cfg
-        self._q = quantize_encoder(params, cfg, device=self._dev) if self.quantize else None
+        self._q = quantize_encoder(params, cfg, device=self.dev) if self.quantize else None
+        self._weights_digest = None  # session_fingerprint hashes the weights once
         self.latent_dim = cfg.latent_dim
         self._rings: Dict[torch.dtype, HostRing] = {}
         self._span_ring: Optional[HostRing] = None
         self._mesh = None
         if self.data_parallel:
-            mesh = make_mesh(device=self._dev, local=True)  # encode stays process-local
+            mesh = make_mesh(device=self.dev, local=True)  # encode stays process-local
             nd = mesh.shape["data"]
             if nd > 1:
                 if self.batch_size % nd:
@@ -257,7 +252,6 @@ class EncoderSession:
         """Validate the frontend settings and derive the decode layout."""
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
-        self._fingerprint = None  # computed lazily (hashes the weights once)
         self._layout = None  # (row_len, col_offset)
         if self.pre_padded_host:
             if (not self.parity or self.backend != "cuda" or self.mel.hop_length % 128
@@ -278,8 +272,8 @@ class EncoderSession:
     ) -> "EncoderSession":
         """Change frontend parameters (config.json's chunk_seconds, the
         frontend mode, the backend) on a loaded session: the layout is derived
-        and validated again, as ``load()`` does, and the fingerprint is reset,
-        only when something changed. The weights stay loaded."""
+        and validated again, as ``load()`` does, only when something changed.
+        The weights stay loaded."""
         changed = False
         if duration is not None and abs(duration - self.mel.duration) > 1e-9:
             self.mel = self.mel.replace(duration=duration)
@@ -323,7 +317,7 @@ class EncoderSession:
         shape changes."""
         ring = self._rings.get(dtype)
         if ring is None or ring.shape != tuple(shape):
-            ring = self._rings[dtype] = HostRing(tuple(shape), dtype, self._dev)
+            ring = self._rings[dtype] = HostRing(tuple(shape), dtype, self.dev)
         return ring
 
     def span_ring(self) -> HostRing:
@@ -332,8 +326,13 @@ class EncoderSession:
         samples, the most a batch can need."""
         n = slot_size(self.batch_size, self.batch_size * self.mel.num_samples)
         if self._span_ring is None or self._span_ring.shape != (n,):
-            self._span_ring = HostRing((n,), torch.int16, self._dev)
+            self._span_ring = HostRing((n,), torch.int16, self.dev)
         return self._span_ring
+
+    @property
+    def accepts_spans(self) -> bool:
+        """Whether ``_dispatch`` takes ``WindowSpans``: not over data shards."""
+        return self._mesh is None
 
     def _to_slot(self, audio: np.ndarray) -> Tuple[HostRing, int]:
         """Host rows -> (a host ring, the index of its slot holding them). A
@@ -357,10 +356,6 @@ class EncoderSession:
             else:
                 window[...] = audio
         return ring, k
-
-    def _to_device(self, audio: np.ndarray) -> torch.Tensor:
-        ring, k = self._to_slot(audio)
-        return ring.send(k)
 
     def _forward(self, audio: torch.Tensor, replica: Optional[tuple] = None) -> torch.Tensor:
         """The device forward of one batch (``replica``: a data shard's
@@ -395,17 +390,18 @@ class EncoderSession:
         rows of the host slot go to its device; spans are refused there, since
         one device would expand and encode every row."""
         spans = isinstance(audio, WindowSpans)
-        if spans and self._mesh is not None:
+        if spans and not self.accepts_spans:
             raise ValueError("WindowSpans reach no data shards: a data-parallel session takes host rows")
         with torch.inference_mode(), span("dispatch", rows=audio.rows if spans else audio.shape[0]):
             if spans:
                 row_len, col = self._layout or (self.mel.num_samples, 0)
                 slot = audio.ring.send(audio.k, 0, audio.n)
                 return self._forward(window_expand(slot, audio.rows, self.mel.num_samples, row_len, col))
-            if self._mesh is None:
-                return self._forward(self._to_device(audio))
-            audio, _ = pad_to_multiple(audio, self._mesh.shape["data"])
+            if self._mesh is not None:
+                audio, _ = pad_to_multiple(audio, self._mesh.shape["data"])
             ring, k = self._to_slot(audio)
+            if self._mesh is None:
+                return self._forward(ring.send(k))
             slices = self._mesh.local_slices(audio.shape[0])
 
             def shard(i: int, _rows) -> torch.Tensor:
@@ -433,32 +429,43 @@ class EncoderSession:
             num_threads=self.num_threads, layout=self._layout, transform=noise, buffers=ring.claim,
         )
 
+    def encode_batches(self, batches: Iterable[tuple], head: Optional[Callable] = None) -> Iterator[tuple]:
+        """Two batches in flight over ``batches``' (batch, tag, n_valid): batch
+        i goes to ``_dispatch``, then to ``head`` (a decision, chained on the
+        device with no host sync), before batch i−1's result is fetched in a
+        ``fetch`` span (``id`` its first row, ``rows`` its valid count). Yields
+        (first row, tag, n_valid, arrays): the valid rows of each tensor
+        ``head`` returns (of the latents alone without ``head``), on the host."""
+        pending, first = None, 0
+        for batch, tag, n_valid in batches:
+            with torch.inference_mode():
+                res = self._dispatch(batch)
+                res = head(res) if head is not None else (res,)  # the latents are freed once decided
+            cur = (res, first, tag, n_valid)
+            if pending is not None:
+                yield self._fetched(*pending)
+            pending, first = cur, first + n_valid
+        if pending is not None:
+            yield self._fetched(*pending)
+
+    @staticmethod
+    def _fetched(res: tuple, first: int, tag, n_valid: int) -> tuple:
+        """A dispatched batch's result on the host (the host waits for the device here)."""
+        with span("fetch", id=first, rows=n_valid):
+            return first, tag, n_valid, tuple(x.cpu().numpy()[:n_valid] for x in res)
+
     def encode_paths(self, paths: Sequence[Path]) -> Tuple[np.ndarray, np.ndarray, List[Optional[str]]]:
         """Decode+encode a path list. Returns (Z [N, D], ok [N], errors [N])."""
         N = len(paths)
         Z = np.zeros((N, self.latent_dim), np.float32)
         ok = np.zeros(N, bool)
         errors: List[Optional[str]] = [None] * N
-        pos = 0
-        pending = None  # (device_result, start, n_valid)
-        for batch, n_valid in self.decoded_batches(paths):
-            ok[pos : pos + n_valid] = batch.ok[:n_valid]
-            errors[pos : pos + n_valid] = batch.errors[:n_valid]
-            cur = (self._dispatch(batch.audio), pos, n_valid)
-            if pending is not None:
-                self._fetch(pending, Z)
-            pending = cur
-            pos += n_valid
-        if pending is not None:
-            self._fetch(pending, Z)
+        batches = ((batch.audio, batch, n_valid) for batch, n_valid in self.decoded_batches(paths))
+        for p0, batch, nv, (z,) in self.encode_batches(batches):
+            Z[p0 : p0 + nv] = z
+            ok[p0 : p0 + nv] = batch.ok[:nv]
+            errors[p0 : p0 + nv] = batch.errors[:nv]
         return Z, ok, errors
-
-    @staticmethod
-    def _fetch(pending: tuple, Z: np.ndarray) -> None:
-        """A dispatched batch's latents -> their rows of ``Z`` (the host waits for the device here)."""
-        z, p0, nv = pending
-        with span("fetch", id=p0, rows=nv):
-            Z[p0 : p0 + nv] = z.cpu().numpy()[:nv]
 
 
 def cache_path_for(cache_dir: Path, chunks_dir: Path, species: str, tag: str = "") -> Path:
@@ -488,26 +495,25 @@ def session_fingerprint(session: EncoderSession) -> str:
     the contractions run their plain versions), int16 transfer, device-side
     normalization and noise injection. The backend is prefixed with :data:`FRAMEWORK_TAG`, so no key equals one of
     the JAX package, whose ``matmul`` backends share their names with this
-    one's while its latents differ in the last bits."""
-    if session._fingerprint:
-        return session._fingerprint
-    h = hashlib.blake2b(digest_size=10)
-    state = session._enc.state_dict()
-    for key in sorted(state):
-        h.update(key.encode())
-        h.update(state[key].detach().cpu().contiguous().numpy().tobytes())
+    one's while its latents differ in the last bits. Composed from the
+    session's fields on every call; only the weights' digest is kept."""
+    if session._weights_digest is None:
+        h = hashlib.blake2b(digest_size=10)
+        state = session._enc.state_dict()
+        for key in sorted(state):
+            h.update(key.encode())
+            h.update(state[key].detach().cpu().contiguous().numpy().tobytes())
+        session._weights_digest = h.hexdigest()
     arch = hashlib.blake2b(json.dumps(cfg_to_dict(session._enc_cfg), sort_keys=True).encode(), digest_size=6).hexdigest()
-    fp = (
+    return (
         f"{mel_fingerprint(session.mel)}_p{int(session.parity)}"
-        f"_{FRAMEWORK_TAG}-{arithmetic_backend(session.mel, session.backend, session._dev)}"
-        f"_e{h.hexdigest()}_a{arch}"
-        + (("_q8" if session._dev.type == "cuda" else "_q8-cpuplain") if session.quantize else "")
+        f"_{FRAMEWORK_TAG}-{arithmetic_backend(session.mel, session.backend, session.dev)}"
+        f"_e{session._weights_digest}_a{arch}"
+        + (("_q8" if session.dev.type == "cuda" else "_q8-cpuplain") if session.quantize else "")
         + ("_i16" if session.transfer_int16 else "")
         + ("_ndev" if session.normalize_on_device else "")
         + (f"_nz{session.add_noise_db:g}s{session.noise_seed}" if session.add_noise_db is not None else "")
     )
-    session._fingerprint = fp
-    return fp
 
 
 def encode_species_tree(

@@ -23,7 +23,6 @@ from pathlib import Path
 from typing import Iterator, List, Optional
 
 import numpy as np
-import torch
 
 from anuraxla_torch.ops.frontend import rms_normalize_np
 from anuraxla_torch.ops.window_expand import slot_size, split_slot
@@ -259,7 +258,7 @@ def scan_soundscapes(
             "normalize_on_device=True — its forward would normalize anyway; "
             "build the session without normalize_on_device instead"
         )
-    species, chunk_seconds, _score_col, decide = detector_from_config(config, detector, session._dev)
+    species, chunk_seconds, _score_col, decide = detector_from_config(config, detector, session.dev)
     session.reconfigure(duration=chunk_seconds)
 
     mel = session.mel
@@ -271,37 +270,18 @@ def scan_soundscapes(
     out: dict = {p: [] for p in wav_paths}
     n_windows = 0
 
-    def emit(res, tags, n_valid, first):
-        with span("fetch", id=first, rows=n_valid):
-            det, win, best = (x.cpu().numpy() for x in res)
-        for j in range(n_valid):
-            fi, s = int(tags[j, 0]), int(tags[j, 1])
-            t0 = s / streams[fi].sr
-            out[wav_paths[fi]].append(
-                Detection(
-                    t_start=t0,
-                    t_end=t0 + chunk_seconds,
-                    detected=bool(det[j]),
-                    species=(species[int(win[j])] if det[j] and win[j] >= 0 else None),
-                    score=float(best[j]),
-                )
-            )
-
-    # three-way overlap, as in EncoderSession.encode_paths: the prefetch
-    # thread extracts (and, without normalize_on_device, normalizes) window
-    # batch i+1, the device runs encode + decide for batch i — decide chained
-    # after the encode, no host sync between them — and the host fetches
-    # batch i−1's decisions. PCM16 mono fleets at the mel rate ship source
-    # spans and cut the windows on the device, unless the host normalizes
-    # or the batch is split over data shards.
+    # three-way overlap in the session's loop (``encode_batches``): the prefetch thread extracts (and,
+    # without normalize_on_device, normalizes) batch i+1, the device encodes and decides batch i, and the
+    # host fetches batch i−1's decisions. PCM16 mono fleets at the mel rate ship source spans and cut the
+    # windows on the device, unless the host normalizes or the session takes no spans.
     host_norm = normalize and not session.normalize_on_device
-    on_device = (not host_norm and session._mesh is None
+    on_device = (not host_norm and session.accepts_spans
                  and takes_spans(streams, target_sr=mel.sr, batch_size=session.batch_size,
                                  num_samples=mel.num_samples))
     if on_device:
         batches = fleet_span_batches(streams, num_samples=mel.num_samples, hop_samples=hop_samples,
                                      batch_size=session.batch_size, ring=session.span_ring())
-    else:
+    else:  # [B, num_samples] rows, which the session stages in its own row layout
         batches = fleet_window_batches(
             streams,
             num_samples=mel.num_samples,
@@ -309,21 +289,16 @@ def scan_soundscapes(
             batch_size=session.batch_size,
             target_sr=mel.sr,
             normalize=host_norm,
-            layout=session._layout,
             # PCM16-mono sources on an int16 link: ship the raw samples
             emit_int16=session.transfer_int16,
         )
-    pending = None
     with maybe_trace("scan_soundscapes"), stage_timer("scan", log=None) as t:
-        for batch, tags, n_valid in batches:
-            with torch.inference_mode():
-                res = decide(session._dispatch(batch))
-            if pending is not None:
-                emit(*pending)
-            pending = (res, tags, n_valid, n_windows)
+        for _, tags, n_valid, (det, win, best) in session.encode_batches(batches, head=decide):
+            for (fi, s), d, w, b in zip(tags.tolist(), det.tolist(), win.tolist(), best.tolist()):
+                t0 = s / streams[fi].sr
+                out[wav_paths[fi]].append(Detection(t_start=t0, t_end=t0 + chunk_seconds, detected=d,
+                                                    species=species[w] if d and w >= 0 else None, score=b))
             n_windows += n_valid
-        if pending is not None:
-            emit(*pending)
     total_audio = sum(st.duration_seconds for st in streams)
     rate = n_windows / t.seconds if t.seconds > 0 else float("nan")
     realtime = total_audio / max(t.seconds, 1e-9)

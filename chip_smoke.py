@@ -929,7 +929,8 @@ def phase_times(seed: int, rng, profile: bool = False, checkpoint=lambda where: 
     # and encoder
     for tier, (sess, rows) in sessions.items():
         t0 = time.perf_counter()
-        dev = sess._to_device(rows)
+        ring, k = sess._to_slot(rows)
+        dev = ring.send(k)
         torch.cuda.synchronize()
         h2d_ms = (time.perf_counter() - t0) * 1e3
         with torch.inference_mode():
@@ -1035,7 +1036,7 @@ def row_rel_err(a: np.ndarray, b: np.ndarray) -> float:
 def copy_route(sess, paths) -> None:
     """``encode_paths`` as it ran before the native decoder: the Python
     reader into a new array for each batch, then a copy into the pinned slot
-    (``_to_device`` copies rows it does not hold) and the transfer, two
+    (``_to_slot`` copies rows it does not hold) and the transfer, two
     batches in flight."""
     from anuraxla_torch.pipeline.dataset import iter_batches
 
@@ -1078,7 +1079,7 @@ def host_split(sess, paths, route: str, reps: int = 2) -> dict:
         elif route == "native-int16":
             ring = sess._ring((B, row_len), torch.int16)
             slot = ring.claim()
-            to_pcm16(rows, slot)  # as EncoderSession._to_device converts
+            to_pcm16(rows, slot)  # as EncoderSession._to_slot converts
         else:
             ring, slot = f32, rows
         t2 = time.perf_counter()

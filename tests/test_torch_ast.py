@@ -230,6 +230,11 @@ def test_artifact_round_trip_and_fallback(tmp_path, caplog):
     assert meta["arch"] == "ast" and meta["input_hw"] == [101, 32] and meta["dtype"] == "bfloat16"
     back, bcfg = checkpoint.load_encoder(d)
     assert bcfg == cfg and list(back) == list(state) and all(torch.equal(back[k], state[k]) for k in state)
+    bad = tmp_path / "bad"
+    bad.mkdir()
+    (bad / "encoder.json").write_text(json.dumps({**meta, "arch": "cnn14"}))
+    with pytest.raises(ValueError, match="arch 'cnn14'"):
+        checkpoint.load_encoder(bad)
     want = session(params=state).encode_array(rows(3))
     by_dir = EncoderSession(mel=SMALL, backend="matmul", device="cpu", encoder_dir=d).load()
     assert isinstance(by_dir._enc, ASTEncoder) and by_dir.encoder_cfg == cfg

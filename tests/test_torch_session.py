@@ -197,6 +197,25 @@ def _imports(path: Path):
             yield node.module or ""
 
 
+def test_stream_reads_no_private_of_the_session():
+    """The fleet scan goes through the session's public surface: ``pipeline/stream.py``
+    reads no ``session._*`` attribute."""
+    tree = ast.parse((REPO / "anuraxla_torch/pipeline/stream.py").read_text())
+    private = [node.lineno for node in ast.walk(tree) if isinstance(node, ast.Attribute)
+               and isinstance(node.value, ast.Name) and node.value.id == "session" and node.attr.startswith("_")]
+    assert not private, private
+
+
+@pytest.mark.parametrize("module", ["session", "stream"])
+def test_pipeline_imports_no_encoder_family(module):
+    """The family table (``models.checkpoint.FAMILIES``) decides the encoder:
+    the session and the fleet scan import nothing of ``models.ast``."""
+    tree = ast.parse((REPO / "anuraxla_torch/pipeline" / f"{module}.py").read_text())
+    names = {n.module + "." + a.name if isinstance(n, ast.ImportFrom) else a.name
+             for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom)) for a in n.names}
+    assert not [m for m in names if "anuraxla_torch.models.ast" in m], names
+
+
 def test_port_imports_no_jax():
     pkg = REPO / "anuraxla_torch"
     files = sorted(f for f in pkg.rglob("*.py") if "_build" not in f.relative_to(pkg).parts)

@@ -275,15 +275,21 @@ def test_fast_tier_session_vs_jax(jax_session, tmp_path):
 
 def test_reconfigure_matches_reference_surface():
     """``reconfigure`` takes duration, parity and backend; it derives the
-    layout and validates again, and resets the fingerprint."""
+    layout and validates again, and the fingerprint follows the new fields,
+    as it follows a field set on the loaded session, with nothing to reset."""
     cfg = DEFAULT_MEL.replace(duration=1.0)
     s = EncoderSession(mel=cfg, device="cpu", pre_padded_host=True, init_seed=1).load()
     fp0 = t_session.session_fingerprint(s)
     assert s._layout == tk.phase_padded_layout(cfg, cfg.total_frames)
-    assert s.reconfigure(duration=1.0, parity=True, backend="cuda") is s and s._fingerprint == fp0
+    assert s.reconfigure(duration=1.0, parity=True, backend="cuda") is s and t_session.session_fingerprint(s) == fp0
     s.reconfigure(duration=2.0)
     assert s._layout == tk.phase_padded_layout(cfg.replace(duration=2.0), s.mel.total_frames)
-    assert t_session.session_fingerprint(s) != fp0
+    fp2 = t_session.session_fingerprint(s)
+    assert fp2 != fp0
+    s.add_noise_db = 6.0
+    assert t_session.session_fingerprint(s) == fp2 + "_nz6s0"
+    s.add_noise_db = None
+    assert t_session.session_fingerprint(s) == fp2
     for bad in (dict(parity=False), dict(backend="matmul"), dict(backend="cuda-bf16")):
         t = EncoderSession(mel=cfg, device="cpu", pre_padded_host=True, init_seed=1).load()
         with pytest.raises(ValueError, match="pre_padded_host"):
